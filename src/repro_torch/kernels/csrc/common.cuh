@@ -1,0 +1,44 @@
+// Helpers shared by the port's kernels: float32 <-> element conversion and
+// 16-byte vector loads / stores (8 bf16 or 4 float32 a vector).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro_torch {
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Elements of T in one 16-byte vector.
+template <typename T> constexpr int kVec = 16 / sizeof(T);
+
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* p, float* out) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+  for (int i = 0; i < kVec<T>; ++i) out[i] = to_f32(e[i]);
+}
+
+template <typename T>
+__device__ __forceinline__ void store_vec(T* p, const float* in) {
+  uint4 u;
+  T* e = reinterpret_cast<T*>(&u);
+#pragma unroll
+  for (int i = 0; i < kVec<T>; ++i) e[i] = from_f32<T>(in[i]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+// dtype codes of the C launch functions
+constexpr int kFloat32 = 0;
+constexpr int kBFloat16 = 1;
+
+}  // namespace repro_torch

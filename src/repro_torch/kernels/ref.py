@@ -1,0 +1,10 @@
+"""Plain PyTorch versions of the ported kernels, under the reference's names.
+
+Each lives beside its kernel's wrapper; this module gathers them as
+``repro/kernels/ref.py`` does for the Pallas kernels.
+"""
+
+from .decode_attention import decode_attention_ref
+from .rmsnorm import rmsnorm_ref
+
+__all__ = ["decode_attention_ref", "rmsnorm_ref"]
