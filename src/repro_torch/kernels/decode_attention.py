@@ -20,6 +20,7 @@ __all__ = ["decode_attention_cuda", "decode_attention_ref"]
 
 _NEG_INF = -2.0e38
 _MAX_REP = 16  # kMaxRep in the kernel
+_MAX_VECS = 128  # 16-byte vectors in a row of D: one per thread of the CTA
 
 
 def decode_attention_ref(
@@ -56,8 +57,8 @@ def decode_attention_cuda(
     """Launch the kernel (CUDA tensors) and return ``o[B, H, D]`` in q's dtype.
 
     Takes float32 or bfloat16 q, k, v of one dtype, contiguous, with
-    ``H % KV == 0``, ``H / KV <= 16``, D a multiple of 16 bytes and
-    ``length >= 1`` (a length above S means all of S).  Raises on anything
+    ``H % KV == 0``, ``H / KV <= 16``, D a multiple of 16 bytes and at most
+    128 such vectors (512 float32, 1024 bf16), and ``length >= 1`` (a length above S means all of S).  Raises on anything
     else, and on a launch the runtime refuses.  Each launch adds one to
     ``decode_attention_cuda.launches``.
     """
@@ -74,10 +75,10 @@ def decode_attention_cuda(
     S, KV = k.shape[1], k.shape[2]
     vec = 16 // q.element_size()
     if (k.shape[0] != B or k.shape[3] != D or H % KV != 0 or H // KV > _MAX_REP
-            or D % vec != 0 or B > 65535 or S == 0):
+            or D % vec != 0 or D // vec > _MAX_VECS or B > 65535 or S == 0):
         raise ValueError(f"decode_attention_cuda does not take q {tuple(q.shape)} "
                          f"with k {tuple(k.shape)} (needs H % KV == 0, H/KV <= "
-                         f"{_MAX_REP}, D % {vec} == 0)")
+                         f"{_MAX_REP}, D % {vec} == 0, D <= {_MAX_VECS * vec})")
     length = int(length)
     if length < 1:
         raise ValueError(f"decode_attention_cuda needs length >= 1, got {length}")

@@ -92,18 +92,19 @@ def attention_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def init_kv_cache(
-    cfg: ModelConfig, batch: int, max_len: int, layer_idx: int,
-    device: torch.device, dtype: torch.dtype | None = None,
+    cfg: ModelConfig, batch: int, max_len: int, layer_idx: int, device: torch.device,
 ) -> Dict[str, torch.Tensor]:
-    """Zeroed ``k``/``v`` of ``[B, L, KV, hd]``; a local layer's L is its window."""
+    """Zeroed ``k``/``v`` of ``[B, L, KV, hd]`` in the param dtype.
+
+    A local layer's L is its window.
+    """
     _check_supported(cfg)
-    dtype = dtype or cfg.param_dtype
     if cfg.attn_kind == "sliding" and not cfg.is_global_attn(layer_idx):
         max_len = min(max_len, cfg.sliding_window)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
     return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "k": torch.zeros(shape, dtype=cfg.param_dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.param_dtype, device=device),
     }
 
 

@@ -139,8 +139,8 @@ class Model(nn.Module):
 
     # -- serving ----------------------------------------------------------------
 
-    def init_caches(self, batch: int, max_len: int, dtype: torch.dtype | None = None):
-        return [init_kv_cache(self.cfg, batch, max_len, li, self.device, dtype)
+    def init_caches(self, batch: int, max_len: int):
+        return [init_kv_cache(self.cfg, batch, max_len, li, self.device)
                 for li in range(self.cfg.n_layers)]
 
     @torch.no_grad()

@@ -23,7 +23,6 @@ __all__ = ["ServeConfig", "ServeEngine"]
 @dataclass(frozen=True)
 class ServeConfig:
     max_batch: int = 8
-    max_len: int = 512
     temperature: float = 0.0  # 0 => greedy
     eos_token: int = -1       # -1 => never stop early
     seed: int = 0

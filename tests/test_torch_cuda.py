@@ -6,9 +6,11 @@ pytest worker collects the same tests.  Run on a machine with an H100:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The plain version runs in float32 from the same inputs.  Tolerances: 3e-5 in
-float32 (only the order of sums and the rsqrtf / expf ulps differ) and 3e-2 in
-bf16 (the kernel rounds its output to bf16, the float32 plain version does
-not), the reference's own pair (tests/test_kernels.py).
+float32 (only the order of sums and the rsqrtf / expf ulps differ); in bf16
+rtol 1e-2, atol 4e-3, about 5x the kernel's own rounding of its float32 result
+to bf16 (relative error <= 2^-9).  That is tighter than the reference's 3e-2,
+which would pass an attention that dropped a slot or accumulated in bf16
+(chip_smoke.py reads such controls against it).
 """
 
 import numpy as np
@@ -25,7 +27,7 @@ from repro_torch.serving import ServeConfig, ServeEngine
 pytestmark = pytest.mark.cuda
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-TOL = {"float32": dict(rtol=3e-5, atol=3e-5), "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+TOL = {"float32": dict(rtol=3e-5, atol=3e-5), "bfloat16": dict(rtol=1e-2, atol=4e-3)}
 
 
 @pytest.fixture
@@ -63,6 +65,9 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
     (4, 4, 1, 256, 544, 544),
     # the reference's sweep shapes and the reduced config
     (2, 8, 2, 64, 1024, 1017), (2, 8, 8, 32, 768, 761), (2, 4, 1, 16, 48, 40),
+    # every bound R on rep the kernel is built for: rep 2, 3 (R = 4), 8, 16
+    (2, 4, 2, 32, 100, 77), (1, 6, 2, 64, 150, 150), (2, 8, 1, 64, 200, 130),
+    (1, 16, 1, 128, 300, 299),
 ])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_decode_attention_kernel_matches_plain(cuda, B, H, KV, D, S, length, dtype):
@@ -101,6 +106,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q, k = torch.zeros(1, 4, 16, device=cuda), torch.zeros(1, 8, 1, 16, device=cuda)
     with pytest.raises(ValueError, match="length"):
         decode_attention_cuda(q, k, k, 0)
+    with pytest.raises(ValueError, match="D <= 1024"):  # one 16-byte vector a thread
+        big = torch.zeros(1, 8, 1, 2048, device=cuda, dtype=torch.bfloat16)
+        decode_attention_cuda(big[:, 0], big, big, 4)
     with pytest.raises(ValueError, match="H % KV"):
         decode_attention_cuda(torch.zeros(1, 3, 16, device=cuda),
                               torch.zeros(1, 8, 2, 16, device=cuda),
