@@ -1,12 +1,15 @@
-"""PyTorch/CUDA port of the ``repro`` serving path (gemma3-1b decode).
+"""PyTorch/CUDA port of ``repro``: gemma3-1b serving and the fused GEMV+AllReduce.
 
-The package mirrors ``repro``'s layout (``models/``, ``kernels/``,
-``serving/``, ``launch/``, ``configs/``) so every module has one counterpart
-to be held against, but it imports ``torch`` only: no ``jax`` and nothing of
+The package mirrors ``repro``'s layout so every module has one counterpart
+to be held against: ``models/``, ``serving/``, ``launch/`` and ``configs/``
+(gemma3-1b decode), ``kernels/`` (the four Hopper kernels and their plain
+versions), ``distributed/`` (the fused GEMV+AllReduce and its companion
+collectives on ``torch.distributed``) and ``core/`` (the Eidola model's two
+spin-wait scans).  It imports ``torch`` only: no ``jax`` and nothing of
 ``repro``.  Where it needs a piece of a reference module it keeps its own
 copy.  Entry points run on the CUDA device unless the caller passes
-``device="cpu"``; the two Hopper kernels (``kernels/csrc/*.cu``) are built
-with ``nvcc`` at first use on the card.
+``device="cpu"``; the kernels (``kernels/csrc/*.cu``) are built with
+``nvcc`` at first use on the card.
 """
 
 from .device import resolve_device

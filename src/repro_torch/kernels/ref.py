@@ -5,6 +5,8 @@ Each lives beside its kernel's wrapper; this module gathers them as
 """
 
 from .decode_attention import decode_attention_ref
+from .gemv import gemv_ref
+from .gemv_tiles import gemv_tiles_ref
 from .rmsnorm import rmsnorm_ref
 
-__all__ = ["decode_attention_ref", "rmsnorm_ref"]
+__all__ = ["decode_attention_ref", "gemv_ref", "gemv_tiles_ref", "rmsnorm_ref"]

@@ -10,7 +10,8 @@ float32 (only the order of sums and the rsqrtf / expf ulps differ); in bf16
 rtol 1e-2, atol 4e-3, about 5x the kernel's own rounding of its float32 result
 to bf16 (relative error <= 2^-9).  That is tighter than the reference's 3e-2,
 which would pass an attention that dropped a slot or accumulated in bf16
-(chip_smoke.py reads such controls against it).
+(chip_smoke.py reads such controls against it).  The gemv kernels take the
+same tolerances; their float32 sums are blocked, as the plain version's are.
 """
 
 import numpy as np
@@ -20,6 +21,8 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.gemv import gemv_cuda
+from repro_torch.kernels.gemv_tiles import gemv_tiles_cuda, remote_first_order, tile_plan
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 from repro_torch.models import Model
 from repro_torch.serving import ServeConfig, ServeEngine
@@ -139,3 +142,86 @@ def test_serve_on_the_card_matches_the_cpu(cuda):
         eng = ServeEngine(model, ServeConfig(max_batch=2))
         outs[name] = (eng.generate(prompts, 12), eng.stats)
     assert outs["gpu"] == outs["cpu"]
+
+
+def _gemv_operands(M, K, N, dtype, layout, device, seed):
+    """a [M, K] row-major, or A = w.T of a row-major w [K, M]; x [K, N]."""
+    a = _randn((M, K), dtype, device, seed)
+    if layout == "w.T":
+        a = a.T.contiguous().T
+        assert a.stride() == (1, M)
+    return a, _randn((K, N), dtype, device, seed + 1)
+
+
+GEMV_SHAPES = [
+    # the reference's sweep (tests/test_kernels.py:19), in both dtypes
+    *[(*mkn, dtype) for mkn in [(128, 512, 1), (256, 1024, 1), (256, 2048, 4), (64, 256, 8)]
+      for dtype in sorted(DTYPES)],
+    # every N the kernels take, a ragged last tile (M % 32), K not a multiple of the chunk
+    *[(96, 1040, n, dtype) for n in range(1, 9) for dtype in sorted(DTYPES)],
+    *[(200, 3072, 3, dtype) for dtype in sorted(DTYPES)],
+    # the fused GEMV+AllReduce's shards in their dtypes: Table 1 in float32, and
+    # gemma3-27b's down-projection over 4 ranks in bf16 (in float32 at K = 5376 the
+    # kernel and cuBLAS sum in orders that differ by ~3e-4 on outputs near 73)
+    (256, 2048, 1, "float32"), (5376, 5376, 4, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("M,K,N,dtype", GEMV_SHAPES)
+@pytest.mark.parametrize("layout", ["row_major", "w.T"])
+def test_gemv_kernel_matches_plain(cuda, M, K, N, dtype, layout):
+    a, x = _gemv_operands(M, K, N, DTYPES[dtype], layout, cuda, 10)
+    before = gemv_cuda.launches
+    y = gemv_cuda(a, x)
+    torch.cuda.synchronize()
+    assert gemv_cuda.launches == before + 1
+    assert y.dtype == a.dtype and y.shape == (M, N)
+    torch.testing.assert_close(y.float(), ref.gemv_ref(a.float(), x.float()), **TOL[dtype])
+    assert torch.equal(gemv_cuda(a, x), y)  # no atomics on values: the same bits
+
+
+@pytest.mark.parametrize("n_dev,my_dev,M,K,N,bm", [
+    # the reference's schedules (tests/test_kernels.py:32)
+    (4, 0, 256, 1024, 1, 32), (4, 1, 256, 1024, 1, 32), (4, 3, 256, 1024, 1, 32),
+    (8, 5, 256, 1024, 1, 32),
+    # several tiles an owner, every N, and the path's shards (4 ranks, bm = 64)
+    *[(2, 1, 512, 512, n, 64) for n in range(1, 9)],
+    *[(4, r, 256, 2048, 1, 64) for r in range(4)],
+])
+@pytest.mark.parametrize("layout", ["row_major", "w.T"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_gemv_tiles_kernel_matches_plain_and_schedule(cuda, n_dev, my_dev, M, K, N, bm,
+                                                      layout, dtype):
+    _check_gemv_tiles(cuda, n_dev, my_dev, M, K, N, bm, layout, dtype)
+
+
+@pytest.mark.parametrize("my_dev", range(4))
+@pytest.mark.parametrize("layout", ["row_major", "w.T"])
+def test_gemv_tiles_kernel_at_the_gemma3_27b_shard(cuda, my_dev, layout):
+    _check_gemv_tiles(cuda, 4, my_dev, 5376, 5376, 4, 64, layout, "bfloat16")
+
+
+def _check_gemv_tiles(cuda, n_dev, my_dev, M, K, N, bm, layout, dtype):
+    a, x = _gemv_operands(M, K, N, DTYPES[dtype], layout, cuda, 20)
+    before = gemv_tiles_cuda.launches
+    y, owner_served = gemv_tiles_cuda(a, x, n_dev=n_dev, my_dev=my_dev, bm=bm)
+    torch.cuda.synchronize()
+    assert gemv_tiles_cuda.launches == before + 1
+    torch.testing.assert_close(y.float(), ref.gemv_ref(a.float(), x.float()), **TOL[dtype])
+    _, tiles_per_dev = tile_plan(M, n_dev, my_dev, bm)
+    expect = [t // tiles_per_dev for t in remote_first_order(n_dev, my_dev, tiles_per_dev)]
+    assert owner_served.dtype == torch.int32 and owner_served.tolist() == expect
+    assert torch.equal(gemv_tiles_cuda(a, x, n_dev=n_dev, my_dev=my_dev, bm=bm)[0], y)
+
+
+def test_gemv_wrappers_refuse_on_the_card(cuda):
+    a, x = torch.zeros(256, 64, device=cuda), torch.zeros(64, 2, device=cuda)
+    with pytest.raises(ValueError, match="bm <= 64"):
+        gemv_tiles_cuda(a, x, n_dev=1, my_dev=0, bm=128)
+    w = torch.zeros(64, 80, device=cuda, dtype=torch.bfloat16)  # A = w.T: bm = 20 rows
+    with pytest.raises(ValueError, match="multiple of 8"):
+        gemv_tiles_cuda(w.T, x.to(torch.bfloat16), n_dev=4, my_dev=0)
+    with pytest.raises(ValueError, match="N <= 8"):
+        gemv_cuda(a, torch.zeros(64, 9, device=cuda))
+    with pytest.raises(ValueError, match="stride_m == 1"):
+        gemv_cuda(torch.zeros(64, 512, device=cuda)[:, ::2], torch.zeros(256, 1, device=cuda))

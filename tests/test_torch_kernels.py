@@ -131,4 +131,4 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc()
     with pytest.raises(ValueError, match="unknown kernel"):
-        build.build(["gemv"])
+        build.build(["no_such_kernel"])
