@@ -9,9 +9,14 @@ Phases, each printing one JSON line:
   build    nvcc builds the four kernels (ptxas register / shared-memory lines);
   kernels  each kernel against its plain version at its path's shapes (and
            gemv / gemv_tiles at the reference's sweeps, in both layouts of A),
-           timed with CUDA events beside the plain version and a library call,
-           gemv's device time per launch from torch.profiler, and faulty
-           controls the bf16 tolerance must reject;
+           timed with CUDA events beside the plain version and a library call;
+           device time per launch of each kernel and of its library call from
+           one torch.profiler run; for gemv / gemv_tiles at both shard shapes
+           the plan (slices, items, blocks, stages, bytes in flight), achieved
+           TB/s and share of the bound, at the gemma3-27b shard also cold (A
+           rotated over copies the L2 cannot hold), gemv row-major, and the
+           measured plan variants; and faulty controls the bf16 tolerance must
+           reject;
   gemv_allreduce  the fused GEMV+AllReduce and the unfused psum_matmul on 4
            ranks (4 processes sharing the card, a gloo group exchanging
            through host memory) at the paper's Table-1 shape and at
@@ -85,6 +90,7 @@ BF16_UNIT_ROUNDOFF = 2.0 ** -8  # bf16 keeps 8 significant bits
 GEMV_SWEEP = [(128, 512, 1), (256, 1024, 1), (256, 2048, 4), (64, 256, 8)]  # test_kernels.py:19
 GEMV_SCHEDULES = [(4, 0), (4, 1), (4, 3), (8, 5)]                           # test_kernels.py:32
 GEMV_CONTROLS = ("acc_bf16_per_slab", "one_slab_dropped")  # must be rejected
+COLD_COPIES = 4  # copies of the 57.8 MB shard a cold timing rotates over (L2: 50 MB)
 
 
 def emit(obj: dict) -> None:
@@ -185,15 +191,89 @@ def _gemv_controls(a: torch.Tensor, x: torch.Tensor, y_plain: torch.Tensor) -> d
             "one_slab_dropped": (y_plain - slabs[K // vec // 2]).to(torch.bfloat16)}
 
 
+def _profile_calls(calls: dict, operands: list, reps: int = 20, attempts: int = 3) -> dict:
+    """Device ms per call of each labelled call, from one torch.profiler run.
+
+    ``calls`` maps a label to a function of one operand: a kernel of the port
+    (its label is the kernel's name) or ``"library"``, the PyTorch call it is
+    held against.  The calls take turns, each on the next of ``operands``, so
+    with copies enough that the L2 cannot hold them every call finds its
+    operand cold.  Device rows of the port's kernels are matched by name,
+    memsets (the kernels' counters) apart, and every other device row is the
+    library call's.  Also returns ``"memset"``: memset ms per profiled call of
+    a port kernel.  A run in which the profiler missed launches (it can drop
+    activity records) is made again, up to ``attempts`` runs in all.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    ours = [k for k in calls if k != "library"]
+    for fn in calls.values():  # warm-up, outside the profile
+        fn(operands[0])
+    seen = None
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        j = 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for fn in calls.values():
+                    fn(operands[j % len(operands)])
+                    j += 1
+            torch.cuda.synchronize()
+        rows, _ = _device_ms_per_launch(prof, ())
+        out = {k: 0.0 for k in calls}
+        out["memset"] = 0.0
+        seen = {}
+        for key, us, n in rows:
+            mine = next((k for k in ours if f"::{k}_kernel<" in key), None)
+            if mine is not None:
+                seen[mine] = n
+                out[mine] = us / 1e3 / n
+            elif "memset" in key.lower():
+                out["memset"] += us / 1e3 / (reps * len(ours))
+            elif "library" in calls:
+                out["library"] += us / 1e3 / reps
+            else:
+                raise AssertionError(f"unexpected device work {key!r} in a profile of {ours}")
+        if all(seen.get(k) == reps for k in ours) and out.get("library", 1.0) > 0.0:
+            return out
+    raise AssertionError(f"in {attempts} profiles of {reps} calls the profiler saw "
+                         f"{seen} launches of {ours}")
+
+
+def _rates(nbytes: int, b_ms: float, ms: float) -> dict:
+    return {"achieved_TBps": nbytes / (ms * 1e-3) / 1e12, "bound_share": b_ms / ms}
+
+
+def _blocks_per_sm(kernel: str, plan, dtype, N: int) -> int:
+    from repro_torch.kernels.gemv import blocks_per_sm
+    from repro_torch.kernels.gemv_tiles import blocks_per_sm as tiles_blocks_per_sm
+
+    return (blocks_per_sm if kernel == "gemv" else tiles_blocks_per_sm)(plan, dtype, N, 1)
+
+
+def _plan_line(kernel: str, plan, per_sm: int, sms: int) -> dict:
+    """The plan of a launch as the phase line prints it (A = w.T layout).
+
+    ``blocks``: gemv launches one block an item, gemv_tiles a persistent grid
+    of what the card holds at once.
+    """
+    from repro_torch.kernels.gemv import STAGE_BYTES, STAGES
+
+    return {"rows": plan.rows, "group": plan.group, "splits": plan.splits,
+            "slice_k": plan.slice_k, "items": plan.items,
+            "blocks": plan.items if kernel == "gemv" else min(plan.items, per_sm * sms),
+            "blocks_per_sm": per_sm, "stages": STAGES, "stage_bytes": STAGE_BYTES,
+            "in_flight_bytes_per_sm": per_sm * (STAGES - 1) * STAGE_BYTES}
+
+
 def _gemv_kernel_checks(gen: torch.Generator) -> dict:
     """gemv and gemv_tiles against the plain product, in both layouts of A, at
     the reference's sweeps and at the collective's shard shapes; the exact
     owner_served schedules; times, bounds and device time per launch."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels import ref
-    from repro_torch.kernels.gemv import gemv_cuda
-    from repro_torch.kernels.gemv_tiles import gemv_tiles_cuda, remote_first_order, tile_plan
+    from repro_torch.kernels.gemv import TILE_ROWS, gemv_cuda, gemv_plan, sm_count
+    from repro_torch.kernels.gemv_tiles import (GROUP, gemv_tiles_cuda, remote_first_order,
+                                                tile_plan)
 
     tol = {torch.float32: F32_TOL, torch.bfloat16: BF16_TOL}
 
@@ -237,40 +317,89 @@ def _gemv_kernel_checks(gen: torch.Generator) -> dict:
             for my_dev in range(RANKS):
                 check("gemv_tiles", a, x, layout, n_dev=RANKS, my_dev=my_dev)
 
-    timings = {}
+    sms = sm_count(torch.device("cuda"))
+    timings, extra = {}, {}
     for name, (B, K, N, dt) in ALLREDUCE_SHAPES.items():
         a, x = operands(N, K // RANKS, B, getattr(torch, dt), "w.T")
         M, Kr = a.shape
         nbytes = (M * Kr + Kr * B + M * B) * a.element_size()
-        n_tiles = M // min(64, M // RANKS)
+        bm, tiles_per_dev = tile_plan(M, RANKS, 0, 64)
+        n_tiles = M // bm
+        plans = {"gemv": gemv_plan(M, Kr, B, a.element_size(), TILE_ROWS, sms),
+                 "gemv_tiles": gemv_plan(M, Kr, B, a.element_size(), bm, sms, group=GROUP,
+                                         tiles_per_dev=tiles_per_dev)}
+        calls = {"gemv": lambda aa: gemv_cuda(aa, x),
+                 "gemv_tiles": lambda aa: gemv_tiles_cuda(aa, x, n_dev=RANKS, my_dev=0),
+                 "library": lambda aa: torch.matmul(aa, x)}
+        warm = _profile_calls(calls, [a])
         library_ms = time_ms(lambda: torch.matmul(a, x))
-        timings[name] = {
-            "gemv": {"shape": {"A": [M, Kr], "x": [Kr, B]}, "dtype": dt,
-                     "ms": time_ms(lambda: gemv_cuda(a, x)),
-                     "plain_ms": time_ms(lambda: ref.gemv_ref(a, x)),
-                     "library_ms": library_ms,
-                     **dict(zip(("bound_ms", "bound_by"),
-                                bound_ms(nbytes, 2 * M * Kr * B, dt)))},
-            "gemv_tiles": {"shape": {"A": [M, Kr], "x": [Kr, B]}, "dtype": dt, "tiles": n_tiles,
-                           "ms": time_ms(lambda: gemv_tiles_cuda(a, x, n_dev=RANKS, my_dev=0)),
-                           "plain_ms": time_ms(lambda: ref.gemv_tiles_ref(a, x, RANKS, 0)),
-                           "library_ms": library_ms,
-                           **dict(zip(("bound_ms", "bound_by"),
-                                      bound_ms(nbytes + 4 * n_tiles, 2 * M * Kr * B, dt)))},
-        }
+        bounds = {"gemv": bound_ms(nbytes, 2 * M * Kr * B, dt),
+                  "gemv_tiles": bound_ms(nbytes + 4 * n_tiles, 2 * M * Kr * B, dt)}
+        timings[name] = {}
+        for kernel, plan in plans.items():
+            per_sm = _blocks_per_sm(kernel, plan, a.dtype, B)
+            b_ms, b_by = bounds[kernel]
+            timings[name][kernel] = {
+                "shape": {"A": [M, Kr], "x": [Kr, B]}, "dtype": dt, "tiles": n_tiles,
+                "ms": time_ms(lambda k=kernel: calls[k](a)),
+                "plain_ms": time_ms(lambda: ref.gemv_ref(a, x)) if kernel == "gemv" else
+                time_ms(lambda: ref.gemv_tiles_ref(a, x, RANKS, 0)),
+                "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "device_ms": warm[kernel], "library_device_ms": warm["library"],
+                "memset_device_ms_per_call": warm["memset"],
+                **_rates(nbytes, b_ms, warm[kernel]),
+                "plan": _plan_line(kernel, plan, per_sm, sms),
+            }
         if name != "gemma3_27b_tp4":
             continue
-        # the bf16 path shape: device time per launch, and the faulty controls
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                gemv_cuda(a, x)
-                gemv_tiles_cuda(a, x, n_dev=RANKS, my_dev=0)
-            torch.cuda.synchronize()
-        _, device = _device_ms_per_launch(prof, ("gemv", "gemv_tiles"))
-        for kernel, entry in device.items():
-            if entry is None or entry["launches"] != 20:
-                raise AssertionError(f"the profiler saw no 20 launches of {kernel}: {entry}")
-            timings[name][kernel]["device_ms"] = entry["device_ms_per_launch"]
+        # cold: every call reads a copy of A that the three calls before it
+        # pushed out of the 50 MB L2 (4 copies, 231 MB), as a decode step would
+        copies = [a] + [a.T.clone().T for _ in range(COLD_COPIES - 1)]
+        cold = _profile_calls(calls, copies)
+        for kernel in plans:
+            timings[name][kernel].update({
+                "cold_device_ms": cold[kernel], "library_cold_device_ms": cold["library"],
+                **{f"cold_{k}": v for k, v in _rates(nbytes, bounds[kernel][0],
+                                                     cold[kernel]).items()}})
+        a_rm = a.contiguous()  # gemv's row-major layout, once
+        timings[name]["gemv"]["row_major_device_ms"] = _profile_calls(
+            {"gemv": lambda aa: gemv_cuda(aa, x)}, [a_rm])["gemv"]
+        del a_rm
+        # the measured variants, cold: box rows (gemv) or tiles an item
+        # (gemv_tiles) against the items an SM the plan aims at
+        variants = []
+        sweeps = [({"gemv": {"rows": r}, "gemv_tiles": {"group": g}}, {"items_per_sm": i})
+                  for r, g in ((64, 1), (128, 2), (256, 4)) for i in (1, 2, 3, 4, 8)]
+        for shape_kw, plan_kw in sweeps:
+            for kernel in ("gemv", "gemv_tiles"):
+                if kernel == "gemv":
+                    plan = gemv_plan(M, Kr, B, a.element_size(), shape_kw[kernel]["rows"],
+                                     sms, **plan_kw)
+                    fn = (lambda aa, p=plan: gemv_cuda(aa, x, plan=p))
+                else:
+                    plan = gemv_plan(M, Kr, B, a.element_size(), bm, sms,
+                                     tiles_per_dev=tiles_per_dev, **shape_kw[kernel],
+                                     **plan_kw)
+                    fn = (lambda aa, p=plan: gemv_tiles_cuda(aa, x, n_dev=RANKS, my_dev=0,
+                                                             plan=p))
+                variants.append({
+                    "kernel": kernel, **shape_kw[kernel], **plan_kw,
+                    "cold_device_ms": _profile_calls({kernel: fn}, copies)[kernel],
+                    "plan": _plan_line(kernel, plan, _blocks_per_sm(kernel, plan, a.dtype, B),
+                                       sms)})
+        # a quarter of the shard's K, 14.5 MB, held in the L2 between calls:
+        # what the kernels and cuBLAS reach when DRAM is out of the way
+        a_l2 = a[:, :Kr // 4]
+        x_l2 = x[:Kr // 4].contiguous()
+        l2 = _profile_calls({"gemv": lambda aa: gemv_cuda(aa, x_l2),
+                             "gemv_tiles": lambda aa: gemv_tiles_cuda(aa, x_l2, n_dev=RANKS,
+                                                                      my_dev=0),
+                             "library": lambda aa: torch.matmul(aa, x_l2)}, [a_l2])
+        extra["gemv_l2_resident"] = {"A": list(a_l2.shape), "bytes": a_l2.numel() * 2, **{
+            k: {"device_ms": ms, "TBps": a_l2.numel() * 2 / (ms * 1e-3) / 1e12}
+            for k, ms in l2.items() if k != "memset"}}
+        extra["gemv_variants"] = variants
+        del copies
         y_plain = ref.gemv_ref(a.float(), x.float())
         controls = {c: {"max_abs_err": (out.float() - y_plain).abs().max().item(),
                         "worst_ratio": _worst_ratio(out, y_plain)}
@@ -278,7 +407,7 @@ def _gemv_kernel_checks(gen: torch.Generator) -> dict:
         passed = [c for c in GEMV_CONTROLS if controls[c]["worst_ratio"] <= 1.0]
         if passed:
             raise AssertionError(f"tolerance {BF16_TOL} lets faulty gemv controls {passed} pass")
-    out = {"gemv_checks": checks, "gemv_controls": controls}
+    out = {"gemv_checks": checks, "gemv_controls": controls, **extra}
     for kernel in ("gemv", "gemv_tiles"):
         out[kernel] = {**timings["gemma3_27b_tp4"][kernel],
                        "max_abs_err": max(c["max_abs_err"] for c in checks
@@ -324,6 +453,10 @@ def phase_kernels() -> dict:
         "library_ms": time_ms(lambda: F.rms_norm(x, (1152,), weight=w, eps=1e-6)),
         "bound_ms": b_ms, "bound_by": b_by,
     }
+    same_run = _profile_calls({"rmsnorm": lambda xx: rmsnorm_cuda(xx, g),
+                               "library": lambda xx: F.rms_norm(xx, (1152,), weight=w, eps=1e-6)},
+                              [x])
+    rms.update(device_ms=same_run["rmsnorm"], library_device_ms=same_run["library"])
 
     # decode_attention: q [B, 4, 256], k/v [B, S, 1, 256] bf16; the 22 local
     # layers see S = 512, the 4 global layers S = plen + new = 544
@@ -369,6 +502,12 @@ def phase_kernels() -> dict:
                 q4, k4, v4, enable_gqa=True)),
             "bound_ms": b_ms, "bound_by": b_by,
         }
+        same_run = _profile_calls(
+            {"decode_attention": lambda _: decode_attention_cuda(q, k, v, length),
+             "library": lambda _: F.scaled_dot_product_attention(q4, k4, v4, enable_gqa=True)},
+            [None])
+        timings[S].update(device_ms=same_run["decode_attention"],
+                          library_device_ms=same_run["library"])
     att = {"dtype": "bfloat16", "max_abs_err": max(c["max_abs_err"] for c in checks),
            **timings[PROMPT_LEN + NEW_TOKENS], "at_S512": timings[512]}
     return {"phase": "kernels", "tolerance": BF16_TOL, "f32_tolerance": F32_TOL,
@@ -732,7 +871,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          **dict(zip(("launches", "device_ms"), launches_and_device_ms(name))),
          **{key: kernels[name][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                "bound_by", "library_ms")}}
+                                                "bound_by", "library_ms", "library_device_ms")}}
         for name, (src, tpu) in SOURCES.items()]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

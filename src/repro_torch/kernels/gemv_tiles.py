@@ -5,8 +5,10 @@ side, paper Fig. 3).  The values are ``gemv``'s; the schedule differs: the
 ``M // bm`` row tiles are issued in :func:`remote_first_order` (the tiles of
 the ring successor ``my_dev + 1`` first, the device's own tiles last), and
 the second output ``owner_served[c]`` is the owner of the c-th issued tile.
-The kernel (``csrc/gemv_tiles.cu``) is persistent: its blocks claim issue
-indices from a global counter, so tiles really start in that order.
+The kernel (``csrc/gemv_tiles.cu``) is persistent: its blocks claim work
+items (a group of up to ``group`` consecutive tiles of one owner, times a K
+slice of :func:`~repro_torch.kernels.gemv.gemv_plan`) from a global counter in
+issue order, so tiles really start in that order.
 """
 
 from __future__ import annotations
@@ -17,11 +19,12 @@ import functools
 import torch
 
 from . import build
-from .gemv import check_operands, gemv_ref
+from .gemv import GemvPlan, check_operands, gemv_plan, gemv_ref, sm_count
 
-__all__ = ["gemv_tiles_cuda", "gemv_tiles_ref", "remote_first_order", "tile_plan"]
+__all__ = ["gemv_tiles_cuda", "gemv_tiles_ref", "remote_first_order", "tile_plan", "GROUP"]
 
-_MAX_BM = 64  # kMaxTileRows in csrc/gemv_tile.cuh
+_MAX_BM = 64  # largest tile the kernel takes
+GROUP = 2     # tiles an item (1, 2 and 4 measured: PERF.md)
 
 
 def remote_first_order(n_dev: int, my_dev: int, tiles_per_dev: int) -> list[int]:
@@ -69,22 +72,35 @@ def _order(n_dev: int, my_dev: int, tiles_per_dev: int, device: torch.device) ->
 
 
 @functools.cache
-def _launch_fn():
-    fn = build.load("gemv_tiles").gemv_tiles_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-        ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = build.load("gemv_tiles")
+    lib.gemv_tiles_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+        ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.gemv_tiles_launch.restype = ctypes.c_int
+    lib.gemv_tiles_blocks_per_sm.argtypes = [ctypes.c_int] * 5
+    lib.gemv_tiles_blocks_per_sm.restype = ctypes.c_int
+    return lib
+
+
+def blocks_per_sm(plan: GemvPlan, dtype: torch.dtype, N: int, col_major: int) -> int:
+    """Blocks of ``gemv_tiles_cuda``'s kernel that one SM holds under ``plan``."""
+    n = _lib().gemv_tiles_blocks_per_sm(N, col_major, build.DTYPE_CODE[dtype], plan.rows,
+                                        plan.slice_k)
+    if n <= 0:
+        raise RuntimeError(f"gemv_tiles occupancy query failed with CUDA error {-n}")
+    return n
 
 
 def gemv_tiles_cuda(a: torch.Tensor, x: torch.Tensor, *, n_dev: int, my_dev: int,
-                    bm: int = 64):
+                    bm: int = 64, plan: GemvPlan | None = None):
     """Launch the kernel on CUDA tensors; return ``(y [M, N], owner_served i32[M // bm])``.
 
     Takes what ``gemv``'s :func:`check_operands` allows, with the reference's
     tile rule (:func:`tile_plan`), ``bm <= 64`` and, for A = w.T, ``bm`` a
     multiple of 16 bytes.  Raises on anything else, and on a launch the
-    runtime refuses.  Each launch adds one to ``gemv_tiles_cuda.launches``.
+    runtime refuses.  ``plan`` defaults to :func:`gemv_plan` with ``GROUP``
+    tiles an item on this card.  Each launch adds one to
+    ``gemv_tiles_cuda.launches``.
     """
     M, K = a.shape
     bm, tiles_per_dev = tile_plan(M, n_dev, my_dev, bm)
@@ -95,14 +111,24 @@ def gemv_tiles_cuda(a: torch.Tensor, x: torch.Tensor, *, n_dev: int, my_dev: int
         raise ValueError(f"gemv_tiles_cuda takes bm <= {_MAX_BM} rows"
                          f"{f', a multiple of {vec} for A = w.T' if col_major else ''}; "
                          f"got bm = {bm}")
+    if plan is None:
+        plan = gemv_plan(M, K, N, a.element_size(), bm, sm_count(a.device), group=GROUP,
+                         tiles_per_dev=tiles_per_dev)
+    groups = M // bm // tiles_per_dev * -(-tiles_per_dev // plan.group)
+    if plan.rows != plan.group * bm or plan.boxes != groups:
+        raise ValueError(f"gemv_tiles_cuda needs a plan of {groups} groups of {plan.group} x "
+                         f"{bm} rows, got {plan}")
     order = _order(n_dev, my_dev, tiles_per_dev, a.device)
     y = torch.empty(M, N, dtype=a.dtype, device=a.device)
     owner_served = torch.empty(M // bm, dtype=torch.int32, device=a.device)
-    counter = torch.empty(1, dtype=torch.int32, device=a.device)  # zeroed by the launch
+    # the partials and the counters, which the launch zeroes
+    ws = torch.empty(plan.workspace_bytes(M, N, 1 + plan.boxes), dtype=torch.uint8,
+                     device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    status = _launch_fn()(a.data_ptr(), x.data_ptr(), y.data_ptr(), owner_served.data_ptr(),
-                          order.data_ptr(), counter.data_ptr(), M, K, N, lda, col_major, bm,
-                          tiles_per_dev, build.DTYPE_CODE[a.dtype], stream)
+    status = _lib().gemv_tiles_launch(
+        a.data_ptr(), x.data_ptr(), y.data_ptr(), owner_served.data_ptr(), order.data_ptr(),
+        ws.data_ptr(), M, K, N, lda, col_major, bm, tiles_per_dev, plan.group, plan.splits,
+        plan.slice_k, build.DTYPE_CODE[a.dtype], stream)
     if status != 0:
         raise RuntimeError(f"gemv_tiles kernel launch failed with CUDA error {status}")
     gemv_tiles_cuda.launches += 1

@@ -21,7 +21,7 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
-from repro_torch.kernels.gemv import gemv_cuda
+from repro_torch.kernels.gemv import GemvPlan, gemv_cuda, gemv_plan
 from repro_torch.kernels.gemv_tiles import gemv_tiles_cuda, remote_first_order, tile_plan
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 from repro_torch.models import Model
@@ -225,3 +225,87 @@ def test_gemv_wrappers_refuse_on_the_card(cuda):
         gemv_cuda(a, torch.zeros(64, 9, device=cuda))
     with pytest.raises(ValueError, match="stride_m == 1"):
         gemv_cuda(torch.zeros(64, 512, device=cuda)[:, ::2], torch.zeros(256, 1, device=cuda))
+
+
+def _plan(M, K, rows, slice_k, vec):
+    """A plan of boxes of ``rows`` rows and K slices of ``slice_k`` elements."""
+    assert slice_k % vec == 0
+    return GemvPlan(rows=rows, splits=-(-K // slice_k), slice_k=slice_k, boxes=-(-M // rows))
+
+
+@pytest.mark.parametrize("M,K,N,rows,slice_k", [
+    (192, 1000, 3, 64, 96),     # a ragged last slice: 10 x 96 + 40
+    (192, 1000, 3, 128, 104),   # the same in 128-row boxes, ragged rows (192 = 128 + 64)
+    (256, 2048, 5, 256, 520),   # 256-row boxes, the last slice 488
+    (136, 256, 2, 64, 256),     # K within one slice: a single split writes y itself
+    (136, 40, 8, 128, 40),      # K smaller than one ring stage
+])
+@pytest.mark.parametrize("layout", ["row_major", "w.T"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_gemv_kernel_under_explicit_plans(cuda, M, K, N, rows, slice_k, layout, dtype):
+    a, x = _gemv_operands(M, K, N, DTYPES[dtype], layout, cuda, 30)
+    plan = _plan(M, K, rows, slice_k, 16 // a.element_size())
+    y = gemv_cuda(a, x, plan=plan)
+    torch.testing.assert_close(y.float(), ref.gemv_ref(a.float(), x.float()), **TOL[dtype])
+    assert torch.equal(gemv_cuda(a, x, plan=plan), y)
+
+
+@pytest.mark.parametrize("rows", [64, 128, 256])
+@pytest.mark.parametrize("items_per_sm", [2, 4, 8])
+@pytest.mark.parametrize("layout", ["row_major", "w.T"])
+def test_gemv_kernel_at_the_gemma3_27b_shard_under_each_measured_plan(cuda, rows, items_per_sm,
+                                                                      layout):
+    a, x = _gemv_operands(5376, 5376, 4, torch.bfloat16, layout, cuda, 31)
+    plan = gemv_plan(5376, 5376, 4, 2, rows, torch.cuda.get_device_properties(cuda)
+                     .multi_processor_count, items_per_sm=items_per_sm)
+    y = gemv_cuda(a, x, plan=plan)
+    torch.testing.assert_close(y.float(), ref.gemv_ref(a.float(), x.float()), **TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("my_dev", [0, 3])
+@pytest.mark.parametrize("layout", ["row_major", "w.T"])
+def test_gemv_tiles_kernel_groups_of_tiles(cuda, group, my_dev, layout):
+    # 21 tiles an owner, as at the gemma3-27b shard: groups of 2 or 4 leave a
+    # shorter group at the end of each owner's run
+    M, K, N, bm = 4 * 21 * 64, 1024, 4, 64
+    a, x = _gemv_operands(M, K, N, torch.bfloat16, layout, cuda, 32)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = gemv_plan(M, K, N, 2, bm, sms, group=group, tiles_per_dev=21)
+    y, owner_served = gemv_tiles_cuda(a, x, n_dev=4, my_dev=my_dev, plan=plan)
+    torch.testing.assert_close(y.float(), ref.gemv_ref(a.float(), x.float()), **TOL["bfloat16"])
+    assert owner_served.tolist() == [t // 21 for t in remote_first_order(4, my_dev, 21)]
+    assert torch.equal(gemv_tiles_cuda(a, x, n_dev=4, my_dev=my_dev, plan=plan)[0], y)
+
+
+@pytest.mark.parametrize("kernel", ["gemv", "gemv_tiles"])
+def test_gemv_calls_on_two_streams_keep_their_own_workspace(cuda, kernel):
+    # two launches in flight at once on two streams, nothing synchronised in
+    # between: each call's partials and counters are its own
+    ops = []
+    for seed in (40, 42):
+        a, x = _gemv_operands(5376, 5376, 4, torch.bfloat16, "w.T", cuda, seed)
+        ops.append((a, x, ref.gemv_ref(a.float(), x.float())))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for (a, x, _), stream in zip(ops, streams):
+        with torch.cuda.stream(stream):
+            if kernel == "gemv":
+                outs.append(gemv_cuda(a, x))
+            else:
+                outs.append(gemv_tiles_cuda(a, x, n_dev=4, my_dev=1)[0])
+    torch.cuda.synchronize()
+    for y, (_, _, want) in zip(outs, ops):
+        torch.testing.assert_close(y.float(), want, **TOL["bfloat16"])
+
+
+def test_gemv_wrappers_refuse_plans_that_do_not_fit(cuda):
+    a, x = torch.zeros(256, 64, device=cuda), torch.zeros(64, 2, device=cuda)
+    with pytest.raises(ValueError, match="boxes"):
+        gemv_cuda(a, x, plan=GemvPlan(rows=64, splits=1, slice_k=64, boxes=3))
+    with pytest.raises(RuntimeError, match="CUDA error"):  # slices that miss K
+        gemv_cuda(a, x, plan=GemvPlan(rows=64, splits=1, slice_k=32, boxes=4))
+    with pytest.raises(ValueError, match="groups"):
+        gemv_tiles_cuda(a, x, n_dev=4, my_dev=0,
+                        plan=GemvPlan(rows=64, splits=1, slice_k=64, boxes=5))

@@ -16,8 +16,8 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels.gemv_tiles import remote_first_order as jax_remote_first_order
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.gemv import gemv_cuda
-from repro_torch.kernels.gemv_tiles import gemv_tiles_cuda, remote_first_order
+from repro_torch.kernels.gemv import GemvPlan, gemv_cuda, gemv_plan
+from repro_torch.kernels.gemv_tiles import gemv_tiles_cuda, remote_first_order, tile_plan
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -132,3 +132,130 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(kernel):
     with pytest.raises(ValueError, match="dtype"):
         call(a, x.to(torch.bfloat16))
     assert (gemv_cuda.launches, gemv_tiles_cuda.launches) == before
+
+
+# --- gemv_plan: the split-K plan of the CUDA kernels, pure and checked here ---
+
+
+def _slices(plan, K):
+    """``(start, length)`` of each K slice, in slice order, as the kernels cut K."""
+    return [(s * plan.slice_k, min(plan.slice_k, K - s * plan.slice_k))
+            for s in range(plan.splits)]
+
+
+def _smem_bytes(plan, N, itemsize):
+    """A block's dynamic shared memory (``gemv_smem_bytes`` in csrc/gemv_tile.cuh):
+    the ring, or the epilogue's partials if larger, then x's float32 slice."""
+    box = next(r for r in (64, 128, 256) if plan.rows <= r)
+    line_vecs = box * itemsize // 16
+    parts = 8 if line_vecs < 32 else 256 // line_vecs
+    np_ = 4 if N <= 4 else 8
+    return max(4 * 8192, parts * box * np_ * 4) + plan.slice_k * np_ * 4
+
+
+def _item_tiles(plan: GemvPlan, n_dev: int, my_dev: int, tiles_per_dev: int
+               ) -> list[tuple[int, list[int]]]:
+    """``(K slice, issued tiles)`` of each item in claim order, as csrc/gemv_tiles.cu
+    maps the claimed index c.
+
+    Item c is group ``c // splits``, slice ``c % splits``; the groups cut each
+    owner's run of ``remote_first_order`` into chunks of up to ``plan.group``.
+    """
+    order = remote_first_order(n_dev, my_dev, tiles_per_dev)
+    per_owner = -(-tiles_per_dev // plan.group)
+    items = []
+    for c in range(n_dev * per_owner * plan.splits):
+        g, s = divmod(c, plan.splits)
+        owner, chunk = divmod(g, per_owner)
+        first = owner * tiles_per_dev + chunk * plan.group
+        items.append((s, order[first:min(first + plan.group, (owner + 1) * tiles_per_dev)]))
+    return items
+
+
+
+H100_SMS = 132
+GEMMA_SHARD = (5376, 5376, 4, 2)  # A = w.T of gemma3-27b's TP-4 down-projection shard, bf16
+TABLE1_SHARD = (256, 2048, 1, 4)  # the paper's Table 1 over 4 ranks, float32
+PLAN_CASES = [
+    (GEMMA_SHARD, dict(bm=64)), (GEMMA_SHARD, dict(bm=128)), (GEMMA_SHARD, dict(bm=256)),
+    ((5376, 5376, 8, 2), dict(bm=64)), (TABLE1_SHARD, dict(bm=64)),
+    *[((M, K, N, 4), dict(bm=64)) for M, K, N in SWEEP],
+    ((96, 1040, 3, 2), dict(bm=64)), ((136, 40, 8, 4), dict(bm=128)),
+    *[(GEMMA_SHARD, dict(bm=64, group=g, tiles_per_dev=21)) for g in (1, 2, 4)],
+    ((256, 1024, 1, 4), dict(bm=32, tiles_per_dev=2)),
+    ((256, 1024, 1, 4), dict(bm=32, group=8, tiles_per_dev=1)),
+]
+
+
+@pytest.mark.parametrize("shape,kw", PLAN_CASES)
+@pytest.mark.parametrize("items_per_sm", [2, 4, 8])
+def test_gemv_plan_slices_cover_k_once_in_16_byte_multiples(shape, kw, items_per_sm):
+    M, K, N, itemsize = shape
+    plan = gemv_plan(M, K, N, itemsize, sms=H100_SMS, items_per_sm=items_per_sm, **kw)
+    slices = _slices(plan, K)
+    assert len(slices) == plan.splits >= 1
+    assert [start for start, _ in slices] == [s * plan.slice_k for s in range(plan.splits)]
+    assert all(length > 0 and (length * itemsize) % 16 == 0 for _, length in slices)
+    assert sum(length for _, length in slices) == K
+    covered = np.zeros(K, int)
+    for start, length in slices:
+        covered[start:start + length] += 1
+    assert (covered == 1).all()
+    assert plan.rows == kw.get("group", 1) * kw["bm"] <= 256
+    # x's float32 slice and the ring fit a block's shared memory (227 KB)
+    assert _smem_bytes(plan, N, itemsize) <= 232448
+
+
+def test_gemv_plan_fills_the_card():
+    # at least 2 items an SM at the gemma shard, more than one at Table 1
+    for kw in (dict(), *(dict(tiles_per_dev=21, group=g) for g in (1, 2))):
+        assert gemv_plan(*GEMMA_SHARD, 64, H100_SMS, **kw).items >= 2 * H100_SMS
+    assert gemv_plan(*TABLE1_SHARD, 64, H100_SMS).items > H100_SMS
+    for g in (1, 2):
+        assert gemv_plan(*TABLE1_SHARD, 64, H100_SMS, tiles_per_dev=1, group=g).items > H100_SMS
+    assert gemv_plan(*GEMMA_SHARD, 64, H100_SMS) == GemvPlan(rows=64, splits=4, slice_k=1344,
+                                                            boxes=84)
+
+
+def test_gemv_plan_refuses_what_no_kernel_takes():
+    with pytest.raises(ValueError, match="multiple of 8"):
+        gemv_plan(64, 100, 1, 2, 64, H100_SMS)
+    with pytest.raises(ValueError, match="256 rows"):
+        gemv_plan(5376, 5376, 4, 2, 64, H100_SMS, group=8, tiles_per_dev=21)
+    with pytest.raises(ValueError, match="N <= 8"):
+        gemv_plan(64, 64, 9, 4, 64, H100_SMS)
+
+
+@pytest.mark.parametrize("n_dev,my_dev,M,bm", [
+    *[(n, r, 256, 32) for n, r in SCHEDULES],      # the reference's schedules
+    *[(4, r, 5376, 64) for r in range(4)],         # the 4-rank gemma3-27b shard
+    *[(4, r, 256, 64) for r in range(4)],          # the 4-rank Table-1 shard
+])
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_items_start_tiles_in_remote_first_order(n_dev, my_dev, M, bm, group):
+    bm, tiles_per_dev = tile_plan(M, n_dev, my_dev, bm)
+    plan = gemv_plan(M, 1024, 4, 2, bm, H100_SMS, group=group, tiles_per_dev=tiles_per_dev)
+    items = _item_tiles(plan, n_dev, my_dev, tiles_per_dev)
+    assert len(items) == plan.items
+    started = []
+    for c, (s, tiles) in enumerate(items):
+        # a group's slices are claimed in slice order, one after the other
+        assert s == c % plan.splits and tiles == items[c - s][1]
+        # a group is consecutive rows of one owner
+        assert tiles == list(range(tiles[0], tiles[0] + len(tiles))) and len(tiles) <= group
+        assert len({t // tiles_per_dev for t in tiles}) == 1
+        if s == 0:
+            started += tiles
+    assert started == remote_first_order(n_dev, my_dev, tiles_per_dev)
+
+
+@pytest.mark.parametrize("M,K,N", [*SWEEP, (256, 2048, 1)])
+def test_split_k_sum_in_slice_order_matches_pallas(M, K, N):
+    ja, jx, ta, tx = _inputs(M, K, N, "float32", seed=5)
+    plan = gemv_plan(M, K, N, 4, 64, H100_SMS)
+    assert plan.splits > 1
+    a, x = ta.numpy(), tx.numpy()
+    y = np.zeros((M, N), np.float32)
+    for start, length in _slices(plan, K):  # the last block's sum, slice by slice
+        y += a[:, start:start + length] @ x[start:start + length]
+    np.testing.assert_allclose(y, _np(jops.gemv(ja, jx, bm=64, bk=256)), rtol=3e-5, atol=3e-5)
