@@ -15,8 +15,11 @@ Phases, each printing one JSON line:
            the plan (slices, items, blocks, stages, bytes in flight), achieved
            TB/s and share of the bound, at the gemma3-27b shard also cold (A
            rotated over copies the L2 cannot hold), gemv row-major, and the
-           measured plan variants; and faulty controls the bf16 tolerance must
-           reject;
+           measured plan variants; for decode_attention at S 544 and 512 the
+           plan (chunk, splits, CTAs, CTAs an SM, waves), warm and cold device
+           time beside SDPA's, the chunk variants (cold), and the kernel at
+           three more head layouts beside SDPA; and faulty controls the bf16
+           tolerance must reject;
   gemv_allreduce  the fused GEMV+AllReduce and the unfused psum_matmul on 4
            ranks (4 processes sharing the card, a gloo group exchanging
            through host memory) at the paper's Table-1 shape and at
@@ -91,6 +94,12 @@ GEMV_SWEEP = [(128, 512, 1), (256, 1024, 1), (256, 2048, 4), (64, 256, 8)]  # te
 GEMV_SCHEDULES = [(4, 0), (4, 1), (4, 3), (8, 5)]                           # test_kernels.py:32
 GEMV_CONTROLS = ("acc_bf16_per_slab", "one_slab_dropped")  # must be rejected
 COLD_COPIES = 4  # copies of the 57.8 MB shard a cold timing rotates over (L2: 50 MB)
+ATTENTION_COLD_BYTES = 100e6  # K and V copies a cold attention timing rotates over: 2x the L2
+# head layouts (name: H, KV, D) of configs a later slice ports, timed at B 4, S 1024,
+# bf16: gemma3-27b (src/repro/configs/gemma3_27b.py), qwen2-vl-7b, kimi-k2
+ATTENTION_HEADS = {"gemma3_27b": (32, 16, 128), "qwen2_vl_7b": (28, 4, 128),
+                   "kimi_k2": (64, 8, 112)}
+ATTENTION_CHUNKS = (16, 32, 64, 128)  # the measured plan variants at the serve shape
 
 
 def emit(obj: dict) -> None:
@@ -416,6 +425,78 @@ def _gemv_kernel_checks(gen: torch.Generator) -> dict:
     return out
 
 
+def _attention_copies(gen: torch.Generator, B: int, H: int, KV: int, D: int, S: int,
+                      copies: int) -> tuple:
+    """bf16 q [B, H, D] and ``copies`` of (k, v) [B, S, KV, D], each beside
+    SDPA's layout of it, [B, KV, S, D]."""
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q = randn(B, H, D)
+    out = []
+    for _ in range(copies):
+        k, v = randn(B, S, KV, D), randn(B, S, KV, D)
+        out.append((k, v, k.permute(0, 2, 1, 3).contiguous(), v.permute(0, 2, 1, 3).contiguous()))
+    return q, out
+
+
+def _attention_device_ms(q, copies, length: int, plan=None) -> dict:
+    """Device ms per call of the kernel and of SDPA (``enable_gqa``) in one
+    profile, each call on the next of ``copies``."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+
+    q4 = q[:, :, None, :].contiguous()  # [B, H, 1, D]
+    return _profile_calls(
+        {"decode_attention": lambda c: decode_attention_cuda(q, c[0], c[1], length, plan=plan),
+         "library": lambda c: F.scaled_dot_product_attention(q4, c[2], c[3], enable_gqa=True)},
+        copies)
+
+
+def _attention_plan_line(plan, H: int, KV: int, D: int, B: int, sms: int) -> dict:
+    from repro_torch.kernels.decode_attention import blocks_per_sm
+
+    per_sm = blocks_per_sm(plan, H, KV, D, torch.bfloat16)
+    return {"chunk": plan.chunk, "splits": plan.splits, "block": plan.block,
+            "ctas": plan.ctas(B, KV), "blocks_per_sm": per_sm,
+            "waves": plan.ctas(B, KV) / (per_sm * sms)}
+
+
+def _attention_sweep(gen: torch.Generator, sms: int) -> dict:
+    """The kernel at the head layouts of ATTENTION_HEADS (B 4, S = length =
+    1024, bf16): checked against the plain version, then warm and cold device
+    time beside SDPA's under the default plan, and cold under chunk variants."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plan
+
+    B, S = REQUESTS, 1024
+    out = {}
+    for name, (H, KV, D) in ATTENTION_HEADS.items():
+        nbytes = 2 * B * S * KV * D * 2
+        q, copies = _attention_copies(gen, B, H, KV, D, S, -(-int(ATTENTION_COLD_BYTES) // nbytes))
+        k, v = copies[0][:2]
+        o = decode_attention_cuda(q, k, v, S)
+        o_plain = ref.decode_attention_ref(q.float(), k.float(), v.float(), S)
+        torch.testing.assert_close(o.float(), o_plain, **BF16_TOL)
+        plan = decode_attention_plan(B, KV, H // KV, D, 2, S, sms)
+        warm, cold = _attention_device_ms(q, copies[:1], S), _attention_device_ms(q, copies, S)
+        b_ms, b_by = bound_ms(nbytes + 2 * q.numel() * 2, 4 * B * H * S * D, "bfloat16")
+        variants = []
+        for chunk in (16, 64, 256):
+            p = decode_attention_plan(B, KV, H // KV, D, 2, S, sms, chunk=chunk)
+            variants.append({**_attention_plan_line(p, H, KV, D, B, sms), "cold_device_ms":
+                             _attention_device_ms(q, copies, S, p)["decode_attention"]})
+        out[name] = {"H_KV_D": [H, KV, D], "rep": H // KV, "B": B, "S": S, "copies": len(copies),
+                     "worst_ratio": _worst_ratio(o, o_plain), "bound_ms": b_ms, "bound_by": b_by,
+                     "device_ms": warm["decode_attention"], "library_device_ms": warm["library"],
+                     "cold_device_ms": cold["decode_attention"],
+                     "library_cold_device_ms": cold["library"],
+                     "memset_device_ms_per_call": warm["memset"],
+                     "plan": _attention_plan_line(plan, H, KV, D, B, sms), "variants": variants}
+        del q, copies
+    return out
+
+
 def phase_build() -> dict:
     from repro_torch.kernels import build
 
@@ -429,7 +510,8 @@ def phase_build() -> dict:
 
 def phase_kernels() -> dict:
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plan
+    from repro_torch.kernels.gemv import sm_count
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 
     dev = torch.device("cuda")
@@ -473,14 +555,17 @@ def phase_kernels() -> dict:
                            "max_abs_err": (o.float() - o_plain).abs().max().item(),
                            "worst_ratio": _worst_ratio(o, o_plain)})
     # timed at the global layers' last step, S = length = 544, and at a
-    # local layer's full ring, S = length = 512
+    # local layer's full ring, S = length = 512; cold: K and V rotated over
+    # copies that exceed twice the L2, as the serve path's 26 layers do
     timings = {}
+    sms = sm_count(dev)
     for S in (PROMPT_LEN + NEW_TOKENS, 512):
         length = S
-        q, k, v = randn(REQUESTS, 4, 256), randn(REQUESTS, S, 1, 256), randn(REQUESTS, S, 1, 256)
+        nbytes_kv = 2 * REQUESTS * S * 256 * 2
+        q, copies = _attention_copies(gen, REQUESTS, 4, 1, 256, S,
+                                      -(-int(ATTENTION_COLD_BYTES) // nbytes_kv))
+        k, v, k4, v4 = copies[0]
         q4 = q[:, :, None, :].contiguous()       # [B, H, 1, D]
-        k4 = k.permute(0, 2, 1, 3).contiguous()  # [B, KV, S, D]
-        v4 = v.permute(0, 2, 1, 3).contiguous()
         o_lib = F.scaled_dot_product_attention(q4, k4, v4, enable_gqa=True)[:, :, 0]
         o_plain = ref.decode_attention_ref(q.float(), k.float(), v.float(), length)
         torch.testing.assert_close(o_lib.float(), o_plain, **BF16_TOL)
@@ -502,17 +587,29 @@ def phase_kernels() -> dict:
                 q4, k4, v4, enable_gqa=True)),
             "bound_ms": b_ms, "bound_by": b_by,
         }
-        same_run = _profile_calls(
-            {"decode_attention": lambda _: decode_attention_cuda(q, k, v, length),
-             "library": lambda _: F.scaled_dot_product_attention(q4, k4, v4, enable_gqa=True)},
-            [None])
-        timings[S].update(device_ms=same_run["decode_attention"],
-                          library_device_ms=same_run["library"])
+        warm = _attention_device_ms(q, copies[:1], length)
+        cold = _attention_device_ms(q, copies, length)
+        timings[S].update(device_ms=warm["decode_attention"], library_device_ms=warm["library"],
+                          cold_device_ms=cold["decode_attention"],
+                          library_cold_device_ms=cold["library"], copies=len(copies),
+                          memset_device_ms_per_call=warm["memset"],
+                          **_rates(nbytes, b_ms, warm["decode_attention"]),
+                          plan=_attention_plan_line(
+                              decode_attention_plan(REQUESTS, 1, 4, 256, 2, length, sms),
+                              4, 1, 256, REQUESTS, sms))
+        if S == PROMPT_LEN + NEW_TOKENS:  # the measured plan variants, cold
+            variants = [{**_attention_plan_line(plan, 4, 1, 256, REQUESTS, sms),
+                         "cold_device_ms": _attention_device_ms(q, copies, length,
+                                                                plan)["decode_attention"]}
+                        for plan in (decode_attention_plan(REQUESTS, 1, 4, 256, 2, length, sms,
+                                                           chunk=c) for c in ATTENTION_CHUNKS)]
+        del q, k, v, k4, v4, copies
     att = {"dtype": "bfloat16", "max_abs_err": max(c["max_abs_err"] for c in checks),
            **timings[PROMPT_LEN + NEW_TOKENS], "at_S512": timings[512]}
     return {"phase": "kernels", "tolerance": BF16_TOL, "f32_tolerance": F32_TOL,
             "decode_attention_checks": checks, "decode_attention_controls": controls,
-            "rmsnorm": rms, "decode_attention": att, **_gemv_kernel_checks(gen)}
+            "rmsnorm": rms, "decode_attention": att, "decode_attention_variants": variants,
+            "decode_attention_heads": _attention_sweep(gen, sms), **_gemv_kernel_checks(gen)}
 
 
 def _allreduce_rank(rank: int, world: int, shapes: dict, reps: int) -> dict:
@@ -871,7 +968,9 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          **dict(zip(("launches", "device_ms"), launches_and_device_ms(name))),
          **{key: kernels[name][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                "bound_by", "library_ms", "library_device_ms")}}
+                                                "bound_by", "library_ms", "library_device_ms")},
+         **{key: kernels[name][key] for key in ("cold_device_ms", "library_cold_device_ms",
+                                                "plan") if key in kernels[name]}}
         for name, (src, tpu) in SOURCES.items()]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-// Helpers shared by the port's kernels: float32 <-> element conversion and
-// 16-byte vector loads / stores (8 bf16 or 4 float32 a vector).
+// Helpers shared by the port's kernels: float32 <-> element conversion,
+// 16-byte vector loads / stores (8 bf16 or 4 float32 a vector) and cp.async.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,6 +35,18 @@ __device__ __forceinline__ void store_vec(T* p, const float* in) {
 #pragma unroll
   for (int i = 0; i < kVec<T>; ++i) e[i] = from_f32<T>(in[i]);
   *reinterpret_cast<uint4*>(p) = u;
+}
+
+// One asynchronous 16-byte copy from global to shared memory, past L1
+// (cp.async.cg), and its commit groups.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
 // dtype codes of the C launch functions

@@ -75,17 +75,6 @@ struct GemvArgs {
   int splits, slice_k;
 };
 
-// One 16-byte copy from global to shared memory, past L1.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
 // Shapes of one ring stage (kStageVecs 16-byte vectors) for elements T and
 // boxes of up to R rows.  A stage spans kStageK elements of K in both
 // layouts: R x kStageK of A.

@@ -1,26 +1,99 @@
-"""Flash-decoding attention: the CUDA kernel's wrapper and its plain version.
+"""Flash-decoding attention: the CUDA kernel's wrapper and its plain versions.
 
 Port of ``repro/kernels/decode_attention.py``.  One query token per sequence,
 ``q[B, H, D]``, against ``k, v[B, S, KV, D]`` with GQA ``rep = H / KV``; only
 the cache prefix ``[0, length)`` takes part.  The kernel
-(``csrc/decode_attention.cu``) runs one CTA per ``(kv head, batch row)``;
-:func:`decode_attention_ref` is the same function in plain PyTorch.
+(``csrc/decode_attention.cu``) cuts that prefix into chunks chosen by
+:func:`decode_attention_plan`, runs one CTA per (chunk, kv head, batch row)
+and combines the chunks' float32 (max, sum, accumulator) in chunk order in the
+same launch.  :func:`decode_attention_ref` is the same function in plain
+PyTorch; :func:`decode_attention_split_ref` is the kernel's split algebra in
+plain PyTorch, for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import torch
 
 from . import build
+from .gemv import sm_count
 
-__all__ = ["decode_attention_cuda", "decode_attention_ref"]
+__all__ = ["decode_attention_cuda", "decode_attention_ref", "decode_attention_split_ref",
+           "decode_attention_plan", "DecodeAttentionPlan", "blocks_per_sm"]
 
 _NEG_INF = -2.0e38
 _MAX_REP = 16  # kMaxRep in the kernel
-_MAX_VECS = 128  # 16-byte vectors in a row of D: one per thread of the CTA
+_MAX_VECS = 128  # 16-byte vectors in a row of D: one column vector a thread
+MIN_CHUNK = 16  # slots: a chunk is a positive multiple of this
+PLAN_CHUNK = 32  # slots: the least chunk a default plan takes (16 measured slower: PERF.md)
+MAX_BLOCK = 128  # kMaxBlock: slots a CTA stages in shared memory at once
+BLOCK_BYTES = 64 * 1024  # K and V of one staged block, at most
+MAX_SPLITS = 256  # chunks of one (b, kv head): bounds the combine's shared memory
+CTAS_PER_SM = 2  # CTAs a plan aims at for each SM (measured: PERF.md)
+
+
+@dataclass(frozen=True)
+class DecodeAttentionPlan:
+    """How a launch cuts the valid prefix ``[0, length)`` of the cache.
+
+    ``splits`` chunks of ``chunk`` slots (a multiple of 16; the last may be
+    shorter, none is empty), one CTA each per (kv head, batch row); a CTA
+    stages its chunk in shared memory ``block`` slots at a time.
+    """
+
+    chunk: int
+    splits: int
+    block: int
+
+    def ctas(self, B: int, KV: int) -> int:
+        return B * KV * self.splits
+
+    def workspace_bytes(self, B: int, KV: int, rep: int, D: int) -> int:
+        """float32 partials ``acc [B KV splits rep D]``, ``(m, l)`` and one
+        int32 counter a (b, kv head); none with one split."""
+        if self.splits == 1:
+            return 0
+        items = B * KV * self.splits * rep
+        return 4 * items * (D + 2) + 4 * B * KV
+
+    def check(self, length: int) -> None:
+        """Raise unless the chunks cover ``[0, length)`` once, none empty."""
+        if not (self.chunk >= 1 and self.splits >= 1 and 1 <= self.block <= MAX_BLOCK
+                and (self.splits - 1) * self.chunk < length <= self.splits * self.chunk):
+            raise ValueError(f"plan {self} does not cover length {length} with non-empty "
+                             f"chunks and blocks of at most {MAX_BLOCK} slots")
+
+
+@functools.lru_cache(maxsize=4096)
+def decode_attention_plan(B: int, KV: int, rep: int, D: int, itemsize: int, length: int,
+                          sms: int, *, chunk: int | None = None) -> DecodeAttentionPlan:
+    """Choose the chunks of a launch; pure, so it runs (and is tested) on the CPU.
+
+    ``length`` is the valid prefix, ``min(length, S)``.  Without ``chunk``,
+    the smallest multiple of 16 slots, at least ``PLAN_CHUNK``, that keeps
+    ``B * KV * splits`` within ``CTAS_PER_SM * sms`` CTAs (within one wave of
+    resident CTAs); one split when ``B * KV`` alone fills that, or ``length``
+    fits one chunk.  A block is the chunk, or as many slots (a multiple of 16)
+    as ``BLOCK_BYTES`` holds of K and V, at most ``MAX_BLOCK``.
+    """
+    if not (B >= 1 and KV >= 1 and 1 <= rep <= _MAX_REP and D >= 1 and itemsize in (2, 4)
+            and length >= 1 and sms >= 1):
+        raise ValueError(f"decode_attention_plan takes positive sizes, rep <= {_MAX_REP} "
+                         f"and itemsize 2 or 4; got B={B}, KV={KV}, rep={rep}, D={D}, "
+                         f"itemsize={itemsize}, length={length}, sms={sms}")
+    if chunk is None:
+        per_row = max(1, CTAS_PER_SM * sms // (B * KV))
+        chunk = max(-(-length // per_row), -(-length // MAX_SPLITS), PLAN_CHUNK)
+        chunk = -(-chunk // MIN_CHUNK) * MIN_CHUNK
+    elif chunk < MIN_CHUNK or chunk % MIN_CHUNK:
+        raise ValueError(f"a chunk is a positive multiple of {MIN_CHUNK} slots, got {chunk}")
+    fits = max(MIN_CHUNK, BLOCK_BYTES // (2 * D * itemsize) // MIN_CHUNK * MIN_CHUNK)
+    return DecodeAttentionPlan(chunk=chunk, splits=-(-length // chunk),
+                               block=min(chunk, MAX_BLOCK, fits))
 
 
 def decode_attention_ref(
@@ -42,24 +115,66 @@ def decode_attention_ref(
     return o.reshape(B, H, D).to(q.dtype)
 
 
+def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int,
+                               plan: DecodeAttentionPlan) -> torch.Tensor:
+    """The kernel's algebra in plain PyTorch, float32: each chunk's max ``m``,
+    sum ``l`` and unnormalised ``acc``, then ``o = sum_i e^(m_i - M) acc_i /
+    max(sum_i e^(m_i - M) l_i, 1e-20)`` with ``M = max_i m_i``, in chunk order."""
+    B, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    length = min(int(length), S)
+    plan.check(length)
+    qh = q.reshape(B, KV, rep, D).float() * (D ** -0.5)
+    parts = []
+    for i in range(plan.splits):
+        lo, hi = i * plan.chunk, min((i + 1) * plan.chunk, length)
+        s = torch.einsum("bgrd,bsgd->bgrs", qh, k[:, lo:hi].float())
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        parts.append((m, p.sum(dim=-1), torch.einsum("bgrs,bsgd->bgrd", p, v[:, lo:hi].float())))
+    M = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l_sum = torch.zeros_like(M)
+    acc = torch.zeros(B, KV, rep, D, dtype=torch.float32, device=q.device)
+    for m, l, a in parts:
+        w = torch.exp(m - M)
+        l_sum = l_sum + w * l
+        acc = acc + w[..., None] * a
+    o = acc / torch.clamp(l_sum, min=1e-20)[..., None]
+    return o.reshape(B, H, D).to(q.dtype)
+
+
 @functools.cache
-def _launch_fn():
-    fn = build.load("decode_attention").decode_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+def _lib():
+    lib = build.load("decode_attention")
+    lib.decode_attention_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.decode_attention_launch.restype = ctypes.c_int
+    lib.decode_attention_blocks_per_sm.argtypes = [ctypes.c_int] * 7
+    lib.decode_attention_blocks_per_sm.restype = ctypes.c_int
+    return lib
 
 
-def decode_attention_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int
-) -> torch.Tensor:
+def blocks_per_sm(plan: DecodeAttentionPlan, H: int, KV: int, D: int, dtype: torch.dtype) -> int:
+    """CTAs of ``decode_attention_cuda``'s kernel that one SM holds under ``plan``."""
+    n = _lib().decode_attention_blocks_per_sm(H, KV, D, build.DTYPE_CODE[dtype], plan.chunk,
+                                              plan.splits, plan.block)
+    if n <= 0:
+        raise RuntimeError(f"decode_attention occupancy query failed with CUDA error {-n}")
+    return n
+
+
+def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int, *,
+                          plan: DecodeAttentionPlan | None = None) -> torch.Tensor:
     """Launch the kernel (CUDA tensors) and return ``o[B, H, D]`` in q's dtype.
 
     Takes float32 or bfloat16 q, k, v of one dtype, contiguous, with
     ``H % KV == 0``, ``H / KV <= 16``, D a multiple of 16 bytes and at most
-    128 such vectors (512 float32, 1024 bf16), and ``length >= 1`` (a length above S means all of S).  Raises on anything
-    else, and on a launch the runtime refuses.  Each launch adds one to
+    128 such vectors (512 float32, 1024 bf16), and ``length >= 1`` (a length
+    above S means all of S).  ``plan`` defaults to :func:`decode_attention_plan`
+    on this card; with more than one split the partials and counters live in
+    one workspace allocated per call.  Raises on anything else, and on a
+    launch the runtime refuses.  Each launch adds one to
     ``decode_attention_cuda.launches``.
     """
     if not (q.device.type == "cuda" and k.device == q.device and v.device == q.device):
@@ -86,11 +201,22 @@ def decode_attention_cuda(
         raise ValueError("decode_attention_cuda needs contiguous q, k, v")
     if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("decode_attention_cuda needs 16-byte aligned q, k, v")
+    length = min(length, S)
+    if plan is None:
+        plan = decode_attention_plan(B, KV, H // KV, D, q.element_size(), length,
+                                     sm_count(q.device))
+    else:
+        plan.check(length)
     o = torch.empty_like(q)
+    ws = None
+    if plan.splits > 1:
+        ws = torch.empty(plan.workspace_bytes(B, KV, H // KV, D), dtype=torch.uint8,
+                         device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = _launch_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                          B, H, KV, S, D, min(length, S), float(D ** -0.5),
-                          build.DTYPE_CODE[q.dtype], stream)
+    status = _lib().decode_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if ws is None else ws.data_ptr(), B, H, KV, S, D, length, plan.chunk,
+        plan.splits, plan.block, float(D ** -0.5), build.DTYPE_CODE[q.dtype], stream)
     if status != 0:
         raise RuntimeError(f"decode_attention kernel launch failed with CUDA error "
                            f"{status}")

@@ -20,7 +20,8 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import ref
-from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.decode_attention import (DecodeAttentionPlan, decode_attention_cuda,
+                                                  decode_attention_plan)
 from repro_torch.kernels.gemv import GemvPlan, gemv_cuda, gemv_plan
 from repro_torch.kernels.gemv_tiles import gemv_tiles_cuda, remote_first_order, tile_plan
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
@@ -96,6 +97,93 @@ def test_decode_attention_kernel_ignores_slots_beyond_length(cuda):
     k[:, 10:] = 99.0
     v[:, 10:] = -99.0
     torch.testing.assert_close(decode_attention_cuda(q, k, v, 10), o, rtol=0, atol=0)
+
+
+# (H, KV, D) head layouts that reach every bound RT on the query rows a thread
+# accumulates, ceil(rep / (256 // (D / vector))) rounded up to 1, 2, 4 or 8:
+# bf16 RT 1, 1, 1, 2, 1, 4, 8 and float32 RT 1, 1, 1, 4, 1, 8 in this order
+ATTENTION_HEADS = [(16, 1, 64), (8, 1, 112), (16, 2, 128), (16, 1, 256), (6, 2, 256),
+                   (16, 1, 512), (9, 1, 1024)]
+# (S, length, chunk): one split staged in two blocks; a ragged last chunk
+# (290 = 6 x 48 + 2); length below one chunk; length 1; three chunks of three
+# staged blocks each (128 + 128 + 16), the last chunk 56
+ATTENTION_PLANS = [(200, 200, 208), (300, 290, 48), (64, 20, 32), (50, 1, 16),
+                   (600, 600, 272)]
+
+
+@pytest.mark.parametrize("H,KV,D,dtype", [
+    (*heads, dtype) for heads in ATTENTION_HEADS for dtype in sorted(DTYPES)
+    if heads[2] * (2 if dtype == "bfloat16" else 4) <= 16 * 128])
+@pytest.mark.parametrize("S,length,chunk", ATTENTION_PLANS)
+def test_decode_attention_kernel_under_explicit_plans(cuda, H, KV, D, dtype, S, length, chunk):
+    dt = DTYPES[dtype]
+    q = _randn((2, H, D), dt, cuda, 8)
+    k = _randn((2, S, KV, D), dt, cuda, 9)
+    v = _randn((2, S, KV, D), dt, cuda, 10)
+    plan = decode_attention_plan(2, KV, H // KV, D, q.element_size(), length, 132, chunk=chunk)
+    assert plan.splits == -(-length // chunk)
+    o = decode_attention_cuda(q, k, v, length, plan=plan)
+    torch.testing.assert_close(
+        o.float(), ref.decode_attention_ref(q.float(), k.float(), v.float(), length),
+        **TOL[dtype])
+    assert torch.equal(decode_attention_cuda(q, k, v, length, plan=plan), o)
+
+
+@pytest.mark.parametrize("S,length", [(544, 544), (512, 512), (544, 300)])
+def test_decode_attention_kernel_repeats_its_bits(cuda, S, length):
+    # the serve path's shapes under the default plan (17 chunks of 32 at 544)
+    q = _randn((4, 4, 256), torch.bfloat16, cuda, 11)
+    k = _randn((4, S, 1, 256), torch.bfloat16, cuda, 12)
+    v = _randn((4, S, 1, 256), torch.bfloat16, cuda, 13)
+    o = decode_attention_cuda(q, k, v, length)
+    for _ in range(3):
+        assert torch.equal(decode_attention_cuda(q, k, v, length), o)
+
+
+def test_decode_attention_calls_on_two_streams_keep_their_own_workspace(cuda):
+    # two launches in flight at once on two streams, nothing synchronised in
+    # between: each call's partials and counters are its own
+    ops = []
+    for seed in (20, 23):
+        q = _randn((4, 4, 256), torch.bfloat16, cuda, seed)
+        k = _randn((4, 544, 1, 256), torch.bfloat16, cuda, seed + 1)
+        v = _randn((4, 544, 1, 256), torch.bfloat16, cuda, seed + 2)
+        ops.append((q, k, v, decode_attention_cuda(q, k, v, 544)))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for (q, k, v, _), stream in zip(ops, streams):
+        with torch.cuda.stream(stream):
+            outs.append(decode_attention_cuda(q, k, v, 544))
+    torch.cuda.synchronize()
+    for o, (q, k, v, want) in zip(outs, ops):
+        assert torch.equal(o, want)
+        torch.testing.assert_close(
+            o.float(), ref.decode_attention_ref(q.float(), k.float(), v.float(), 544),
+            **TOL["bfloat16"])
+
+
+def test_decode_attention_kernel_ignores_slots_beyond_length_across_splits(cuda):
+    q = _randn((2, 8, 64), torch.bfloat16, cuda, 14)
+    k = _randn((2, 256, 2, 64), torch.bfloat16, cuda, 15)
+    v = _randn((2, 256, 2, 64), torch.bfloat16, cuda, 16)
+    plan = decode_attention_plan(2, 2, 4, 64, 2, 100, 132, chunk=16)  # 7 chunks, the last 4
+    o = decode_attention_cuda(q, k, v, 100, plan=plan)
+    o_default = decode_attention_cuda(q, k, v, 100)
+    k[:, 100:] = 99.0
+    v[:, 100:] = -99.0
+    assert torch.equal(decode_attention_cuda(q, k, v, 100, plan=plan), o)
+    assert torch.equal(decode_attention_cuda(q, k, v, 100), o_default)
+
+
+def test_decode_attention_refuses_plans_that_do_not_fit(cuda):
+    q, k = torch.zeros(1, 4, 16, device=cuda), torch.zeros(1, 64, 1, 16, device=cuda)
+    with pytest.raises(ValueError, match="does not cover"):
+        decode_attention_cuda(q, k, k, 40, plan=DecodeAttentionPlan(chunk=16, splits=2, block=16))
+    with pytest.raises(ValueError, match="does not cover"):  # an empty last chunk
+        decode_attention_cuda(q, k, k, 32, plan=DecodeAttentionPlan(chunk=16, splits=3, block=16))
+    with pytest.raises(ValueError, match="does not cover"):
+        decode_attention_cuda(q, k, k, 40, plan=DecodeAttentionPlan(chunk=64, splits=1, block=256))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
