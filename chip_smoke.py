@@ -6,7 +6,8 @@ Run from the repository root on a machine with a CUDA device (an H100):
 
 Phases, each printing one JSON line:
   device   the card's name and power limit (nvidia-smi) and torch's view of it;
-  build    nvcc builds the four kernels (ptxas register / shared-memory lines);
+  build    nvcc builds the four kernels and the empty launch-floor kernel
+           (ptxas register / shared-memory lines);
   kernels  each kernel against its plain version at its path's shapes (and
            gemv / gemv_tiles at the reference's sweeps, in both layouts of A),
            timed with CUDA events beside the plain version and a library call;
@@ -18,8 +19,14 @@ Phases, each printing one JSON line:
            measured plan variants; for decode_attention at S 544 and 512 the
            plan (chunk, splits, CTAs, CTAs an SM, waves), warm and cold device
            time beside SDPA's, the chunk variants (cold), and the kernel at
-           three more head layouts beside SDPA; and faulty controls the bf16
-           tolerance must reject;
+           three more head layouts beside SDPA; faulty controls the bf16
+           tolerance must reject; rmsnorm and decode_attention at the main
+           path's shapes (olmoe-1b-7b: x [4, 1, 2048]; q [4, 16, 128] against
+           k/v [4, 544, 16, 128]) beside their plain versions and library
+           calls, the empty kernel's device time in the same profile as
+           rmsnorm and F.rms_norm (the launch floor), and decode_attention at
+           the head layout of each GQA config of the families phase beside
+           SDPA (S 40 and 544);
   gemv_allreduce  the fused GEMV+AllReduce and the unfused psum_matmul on 4
            ranks (4 processes sharing the card, a gloo group exchanging
            through host memory) at the paper's Table-1 shape and at
@@ -27,13 +34,23 @@ Phases, each printing one JSON line:
            its result, its owner_served schedule and its kernel launches;
   scans    the Eidola model's replay_lane and spin_reads on the card against
            their numpy closed forms, exactly;
-  serve    gemma3-1b at full width (random bf16 weights from a seeded
-           generator) through ServeEngine: 4 requests x (480 + 64) tokens,
-           asserting 53 rmsnorm and 26 decode_attention launches per step;
-  profile  device time by kernel over the last decode steps (torch.profiler),
-           beside the wall of the same steps run without the profiler;
-  parity   the reduced config in float32 through ServeEngine on the card and
-           on the CPU: first-step logits close, greedy tokens identical.
+  serve    gemma3-1b (slice 1's path), then this slice's main path,
+           olmoe-1b-7b (6.92 B parameters, 64 experts top-8), both at full
+           width (random bf16 weights from a seeded generator) through
+           ServeEngine: 4 requests x (480 + 64) tokens, asserting the
+           launches of each kernel per step (53 / 26 rmsnorm /
+           decode_attention for gemma3-1b, 33 / 16 for olmoe);
+  profile  after each serve phase, device time by kernel over the last
+           decode steps (torch.profiler), beside the wall of the same steps
+           run without the profiler; for olmoe the grouped GEMMs' device time
+           per step beside their byte bound from the experts touched;
+  families the other attention configs at full width with their depth cut
+           (gemma3-27b to 6 layers, the rest to 2): 4 x (32 + 8) tokens each,
+           exact launches, ms per step, peak memory and a profile;
+  parity   every attention family's reduced config in float32 through the
+           decode step and ServeEngine on the card and on the CPU: first-step
+           logits close, MoE routing identical at every step, greedy tokens
+           and stats identical.
 Then the kernel summary line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Any failure raises: the script exits non-zero
 and prints no result.  Without a CUDA device it exits 2 at once.
@@ -72,8 +89,21 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel's pallas_call site)
     "gemv_tiles": ("src/repro_torch/kernels/csrc/gemv_tiles.cu",
                    "src/repro/kernels/gemv_tiles.py:92"),
 }
-SERVE_KERNELS = ("rmsnorm", "decode_attention")  # the serve path's; gemv's run in
+SERVE_KERNELS = ("rmsnorm", "decode_attention")  # the serve paths'; gemv's run in
 # the kernels and gemv_allreduce phases
+# the serve paths: slice 1's gemma3-1b, and this slice's main path, olmoe-1b-7b
+# (src/repro/configs/olmoe_1b_7b.py, arXiv:2409.02060), both at full width
+MAIN_ARCH = "olmoe-1b-7b"
+OLMOE_HEADS = {"d_model": 2048, "H": 16, "KV": 16, "D": 128}
+# the other attention-family configs at full width, depth cut to these layers:
+# gemma3-27b keeps one global layer (every 6th), kimi-k2 one dense and one MoE
+# layer with all 384 experts (about 19.6 B parameters, 39 GB in bf16)
+FAMILIES = {"gemma3-27b": 6, "starcoder2-7b": 2, "qwen2-vl-7b": 2, "minicpm3-4b": 2,
+            "musicgen-large": 2, "kimi-k2-1t-a32b": 2, "kimi-k2-1t-mla": 2}
+FAMILY_PROMPT, FAMILY_NEW = 32, 8
+# every attention family, reduced, in float32 on the card and on the CPU
+PARITY_ARCHS = ("gemma3-1b", "gemma3-27b", "starcoder2-7b", "qwen2-vl-7b", "minicpm3-4b",
+                "musicgen-large", "olmoe-1b-7b", "kimi-k2-1t-a32b", "kimi-k2-1t-mla")
 
 # The fused GEMV+AllReduce's shapes: y[B, N] = x[B, K] @ w[K, N], K split over
 # RANKS ranks, so each rank's kernels see A = w_shard.T [N, K / RANKS] and x.T
@@ -232,11 +262,13 @@ def _profile_calls(calls: dict, operands: list, reps: int = 20, attempts: int = 
         out = {k: 0.0 for k in calls}
         out["memset"] = 0.0
         seen = {}
+        total_us = {}
         for key, us, n in rows:
             mine = next((k for k in ours if f"::{k}_kernel<" in key), None)
-            if mine is not None:
-                seen[mine] = n
-                out[mine] = us / 1e3 / n
+            if mine is not None:  # a kernel may show under more than one key
+                seen[mine] = seen.get(mine, 0) + n
+                total_us[mine] = total_us.get(mine, 0.0) + us
+                out[mine] = total_us[mine] / 1e3 / seen[mine]
             elif "memset" in key.lower():
                 out["memset"] += us / 1e3 / (reps * len(ours))
             elif "library" in calls:
@@ -246,7 +278,8 @@ def _profile_calls(calls: dict, operands: list, reps: int = 20, attempts: int = 
         if all(seen.get(k) == reps for k in ours) and out.get("library", 1.0) > 0.0:
             return out
     raise AssertionError(f"in {attempts} profiles of {reps} calls the profiler saw "
-                         f"{seen} launches of {ours}")
+                         f"{seen} launches of {ours}; the last profile's device rows: "
+                         f"{[(key[:100], n) for key, _, n in rows]}")
 
 
 def _rates(nbytes: int, b_ms: float, ms: float) -> dict:
@@ -497,6 +530,119 @@ def _attention_sweep(gen: torch.Generator, sms: int) -> dict:
     return out
 
 
+def _rmsnorm_at(gen: torch.Generator, d: int) -> dict:
+    """rmsnorm at a serve path's shape, x [B, 1, d] bf16: checked against the
+    plain version, timed by events beside the plain version and F.rms_norm,
+    and by device time per launch in one profile with F.rms_norm and the
+    empty kernel (the launch floor)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.empty import empty_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+
+    x = torch.randn(REQUESTS, 1, d, generator=gen, device="cuda").to(torch.bfloat16)
+    g = (torch.randn(d, generator=gen, device="cuda") * 0.2).to(torch.bfloat16)
+    y = rmsnorm_cuda(x, g)
+    y_plain = ref.rmsnorm_ref(x.float(), g.float())
+    torch.testing.assert_close(y.float(), y_plain, **BF16_TOL)
+    w = (1.0 + g.float()).to(torch.bfloat16)  # F.rms_norm scales by weight, not 1 + weight
+    b_ms, b_by = bound_ms(2 * x.numel() * 2 + g.numel() * 2, 5 * x.numel(), "float32")
+    rms = {
+        "shape": list(x.shape), "dtype": "bfloat16",
+        "max_abs_err": (y.float() - y_plain).abs().max().item(),
+        "ms": time_ms(lambda: rmsnorm_cuda(x, g)),
+        "plain_ms": time_ms(lambda: ref.rmsnorm_ref(x, g)),
+        "library_ms": time_ms(lambda: F.rms_norm(x, (d,), weight=w, eps=1e-6)),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    same_run = _profile_calls({"rmsnorm": lambda xx: rmsnorm_cuda(xx, g),
+                               "empty": lambda xx: empty_cuda(xx.device),
+                               "library": lambda xx: F.rms_norm(xx, (d,), weight=w, eps=1e-6)},
+                              [x])
+    floor = same_run["empty"]
+    rms.update(device_ms=same_run["rmsnorm"], library_device_ms=same_run["library"],
+               launch_floor_device_ms=floor,
+               reaches_half_of_max_bound_and_floor=same_run["rmsnorm"] <= 2 * max(b_ms, floor))
+    return rms
+
+
+def _attention_path(gen: torch.Generator, H: int, KV: int, D: int, S: int) -> dict:
+    """decode_attention at a serve path's head layout (B 4, bf16, cache of S
+    slots): checked against the plain version at lengths 1, S/2 and S, timed
+    at length S by events beside the plain version and SDPA, and by device
+    time per launch beside SDPA in one profile, warm and cold (K and V
+    rotated over copies that exceed twice the L2)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plan
+    from repro_torch.kernels.gemv import sm_count
+
+    nbytes_kv = 2 * REQUESTS * S * KV * D * 2
+    q, copies = _attention_copies(gen, REQUESTS, H, KV, D, S,
+                                  -(-int(ATTENTION_COLD_BYTES) // nbytes_kv))
+    k, v, k4, v4 = copies[0]
+    checks = []
+    for length in (1, S // 2, S):
+        o = decode_attention_cuda(q, k, v, length)
+        o_plain = ref.decode_attention_ref(q.float(), k.float(), v.float(), length)
+        torch.testing.assert_close(o.float(), o_plain, **BF16_TOL)
+        checks.append({"length": length, "max_abs_err": (o.float() - o_plain).abs().max().item(),
+                       "worst_ratio": _worst_ratio(o, o_plain)})
+    q4 = q[:, :, None, :].contiguous()
+    o_lib = F.scaled_dot_product_attention(q4, k4, v4, enable_gqa=True)[:, :, 0]
+    torch.testing.assert_close(o_lib.float(), o_plain, **BF16_TOL)
+    nbytes = (2 * q.numel() + 2 * REQUESTS * S * KV * D) * 2
+    b_ms, b_by = bound_ms(nbytes, 4 * REQUESTS * H * S * D, "bfloat16")
+    warm = _attention_device_ms(q, copies[:1], S)
+    cold = _attention_device_ms(q, copies, S)
+    sms = sm_count(q.device)
+    return {
+        "shape": {"q": list(q.shape), "k": list(k.shape), "length": S}, "rep": H // KV,
+        "checks": checks, "max_abs_err": max(c["max_abs_err"] for c in checks),
+        "ms": time_ms(lambda: decode_attention_cuda(q, k, v, S)),
+        "plain_ms": time_ms(lambda: ref.decode_attention_ref(q, k, v, S)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                                     enable_gqa=True)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "device_ms": warm["decode_attention"], "library_device_ms": warm["library"],
+        "cold_device_ms": cold["decode_attention"], "library_cold_device_ms": cold["library"],
+        "copies": len(copies), "memset_device_ms_per_call": warm["memset"],
+        **_rates(nbytes, b_ms, warm["decode_attention"]),
+        "plan": _attention_plan_line(decode_attention_plan(REQUESTS, KV, H // KV, D, 2, S, sms),
+                                     H, KV, D, REQUESTS, sms),
+    }
+
+
+def _family_heads(gen: torch.Generator) -> dict:
+    """decode_attention at the head layout of each GQA config of FAMILIES
+    (B 4, bf16), at the families phase's S (32 + 8) and at 544: checked
+    against the plain version, and its device time per launch beside SDPA's
+    (``enable_gqa``) in one profile, warm."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+
+    out = {}
+    for arch in FAMILIES:
+        cfg = get_config(arch)
+        if cfg.attn_kind == "mla":
+            out[arch] = None  # MLA attends in plain torch, not through the kernel
+            continue
+        H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        entry = {"H_KV_D": [H, KV, D], "rep": H // KV}
+        for S in (FAMILY_PROMPT + FAMILY_NEW, PROMPT_LEN + NEW_TOKENS):
+            q, copies = _attention_copies(gen, REQUESTS, H, KV, D, S, 1)
+            k, v = copies[0][:2]
+            o = decode_attention_cuda(q, k, v, S)
+            o_plain = ref.decode_attention_ref(q.float(), k.float(), v.float(), S)
+            torch.testing.assert_close(o.float(), o_plain, **BF16_TOL)
+            warm = _attention_device_ms(q, copies, S)
+            entry[f"S{S}"] = {"device_ms": warm["decode_attention"],
+                              "library_device_ms": warm["library"],
+                              "worst_ratio": _worst_ratio(o, o_plain)}
+            del q, copies
+        out[arch] = entry
+    return out
+
+
 def phase_build() -> dict:
     from repro_torch.kernels import build
 
@@ -512,7 +658,6 @@ def phase_kernels() -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plan
     from repro_torch.kernels.gemv import sm_count
-    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -520,26 +665,7 @@ def phase_kernels() -> dict:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    # rmsnorm at the serve path's shape: x [B, 1, d_model] bf16
-    x, g = randn(REQUESTS, 1, 1152), randn(1152) * 0.2
-    y = rmsnorm_cuda(x, g)
-    y_plain = ref.rmsnorm_ref(x.float(), g.float())
-    torch.testing.assert_close(y.float(), y_plain, **BF16_TOL)
-    w = (1.0 + g.float()).to(torch.bfloat16)  # F.rms_norm scales by weight, not 1 + weight
-    b_ms, b_by = bound_ms(2 * x.numel() * 2 + g.numel() * 2, 5 * x.numel(), "float32")
-    rms = {
-        "shape": list(x.shape), "dtype": "bfloat16",
-        "max_abs_err": (y.float() - y_plain).abs().max().item(),
-        "ms": time_ms(lambda: rmsnorm_cuda(x, g)),
-        "plain_ms": time_ms(lambda: ref.rmsnorm_ref(x, g)),
-        "library_ms": time_ms(lambda: F.rms_norm(x, (1152,), weight=w, eps=1e-6)),
-        "bound_ms": b_ms, "bound_by": b_by,
-    }
-    same_run = _profile_calls({"rmsnorm": lambda xx: rmsnorm_cuda(xx, g),
-                               "library": lambda xx: F.rms_norm(xx, (1152,), weight=w, eps=1e-6)},
-                              [x])
-    rms.update(device_ms=same_run["rmsnorm"], library_device_ms=same_run["library"])
-
+    rms_gemma = _rmsnorm_at(gen, 1152)
     # decode_attention: q [B, 4, 256], k/v [B, S, 1, 256] bf16; the 22 local
     # layers see S = 512, the 4 global layers S = plen + new = 544
     checks = []
@@ -606,10 +732,18 @@ def phase_kernels() -> dict:
         del q, k, v, k4, v4, copies
     att = {"dtype": "bfloat16", "max_abs_err": max(c["max_abs_err"] for c in checks),
            **timings[PROMPT_LEN + NEW_TOKENS], "at_S512": timings[512]}
+    # this slice's main path, olmoe-1b-7b: x [4, 1, 2048]; q [4, 16, 128] and
+    # k/v [4, S, 16, 128], S = 480 + 64 on every layer
+    olmoe = OLMOE_HEADS
     return {"phase": "kernels", "tolerance": BF16_TOL, "f32_tolerance": F32_TOL,
+            "rmsnorm": _rmsnorm_at(gen, olmoe["d_model"]),
+            "decode_attention": _attention_path(gen, olmoe["H"], olmoe["KV"], olmoe["D"],
+                                                PROMPT_LEN + NEW_TOKENS),
             "decode_attention_checks": checks, "decode_attention_controls": controls,
-            "rmsnorm": rms, "decode_attention": att, "decode_attention_variants": variants,
-            "decode_attention_heads": _attention_sweep(gen, sms), **_gemv_kernel_checks(gen)}
+            "rmsnorm_gemma3_1b": rms_gemma, "decode_attention_gemma3_1b": att,
+            "decode_attention_variants": variants,
+            "decode_attention_heads": _attention_sweep(gen, sms),
+            "decode_attention_families": _family_heads(gen), **_gemv_kernel_checks(gen)}
 
 
 def _allreduce_rank(rank: int, world: int, shapes: dict, reps: int) -> dict:
@@ -799,14 +933,19 @@ def phase_scans() -> dict:
             "spin_flag_reads": int(s_np.sum())}
 
 
-def phase_serve(card: str):
+def phase_serve(card: str, arch: str) -> tuple:
+    """``arch`` at full width (random bf16 weights from a seeded generator)
+    through ServeEngine: REQUESTS x (PROMPT_LEN + NEW_TOKENS) tokens, greedy,
+    with each kernel's launches counted from 0 over the run and held to
+    ``decode_launches`` a step."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
     from repro_torch.models import Model
+    from repro_torch.models.model import decode_launches
     from repro_torch.serving import ServeConfig, ServeEngine
 
-    cfg = get_config("gemma3-1b")  # full width, bf16
+    cfg = get_config(arch)  # full width, bf16
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     model = Model(cfg).init(torch.Generator(device=dev).manual_seed(0))
@@ -818,7 +957,8 @@ def phase_serve(card: str):
     caches = model.init_caches(REQUESTS, 8)
     logits, _ = model.decode_step(caches, torch.tensor([p[0] for p in prompts], device=dev), 0)
     if logits.shape != (REQUESTS, cfg.vocab) or not torch.isfinite(logits).all():
-        raise AssertionError(f"bad first-step logits {tuple(logits.shape)}")
+        raise AssertionError(f"{arch}: bad first-step logits {tuple(logits.shape)}")
+    del caches
     ServeEngine(model, ServeConfig(max_batch=REQUESTS)).generate(
         [p[:8] for p in prompts], 2)  # warm-up: cuBLAS handles, allocator
 
@@ -836,46 +976,87 @@ def phase_serve(card: str):
     steps = eng.stats["prefill_tokens"] // REQUESTS + eng.stats["decode_steps"]
     if steps != PROMPT_LEN + NEW_TOKENS:
         raise AssertionError(f"{steps} decode steps, expected {PROMPT_LEN + NEW_TOKENS}")
-    expect = {"rmsnorm": (2 * cfg.n_layers + 1) * steps,
-              "decode_attention": cfg.n_layers * steps}
+    per_step = decode_launches(cfg)
+    expect = {k: n * steps for k, n in per_step.items()}
     if launches != expect:
-        raise AssertionError(f"kernel launches {launches} != {expect}")
+        raise AssertionError(f"{arch}: kernel launches {launches} != {expect}")
     if not all(len(o) == PROMPT_LEN + NEW_TOKENS and all(0 <= t < cfg.vocab for t in o)
                for o in outs):
-        raise AssertionError("served outputs have the wrong length or token range")
+        raise AssertionError(f"{arch}: served outputs have the wrong length or token range")
     return model, {
-        "phase": "serve", "arch": cfg.name, "params": model.n_params(),
+        "phase": "serve", "arch": cfg.name, "layers": cfg.n_layers, "params": model.n_params(),
         "dtype": "bfloat16", "requests": REQUESTS, "prompt_len": PROMPT_LEN,
         "new_tokens": NEW_TOKENS, "decode_steps": steps, "stats": eng.stats,
-        "launches": launches, "expected_launches": expect,
+        "launches": launches, "launches_per_step": per_step, "expected_launches": expect,
         "wall_s": wall, "new_tokens_per_s": REQUESTS * NEW_TOKENS / wall,
         "ms_per_step": wall * 1e3 / steps, "init_s": init_s,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(), "card": card,
     }
 
 
-def phase_profile(model, steps: int = 32) -> dict:
-    """Device time by kernel over the last decode steps of a 544-token batch.
+def _grouped_gemm_keys(block, reps: int = 5, attempts: int = 3) -> set:
+    """Names of the device kernels that ``torch._grouped_mm`` runs for a MoE
+    block's two product shapes (gate / up, and down) at the decode batch,
+    from a profile of those calls alone; made again, up to ``attempts``
+    profiles, if the profiler dropped their activity records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    p, cfg = block.moe, block.cfg
+    rows = REQUESTS * cfg.experts_per_token
+    offs = torch.linspace(0, rows, cfg.n_experts + 1, device="cuda")[1:].to(torch.int32)
+    xs = torch.randn(rows, cfg.d_model, device="cuda").to(p["w_gate"].dtype)
+    h = torch.randn(rows, cfg.d_ff, device="cuda").to(p["w_gate"].dtype)
+
+    def calls():
+        for _ in range(reps):
+            torch._grouped_mm(xs, p["w_gate"], offs=offs)
+            torch._grouped_mm(h, p["w_down"], offs=offs)
+
+    calls()
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            calls()
+            torch.cuda.synchronize()
+        found, _ = _device_ms_per_launch(prof, ())
+        if found:
+            return {key for key, _, _ in found}
+    raise AssertionError(f"in {attempts} profiles the profiler saw no device kernel of "
+                         "torch._grouped_mm")
+
+
+def phase_profile(model, end: int = PROMPT_LEN + NEW_TOKENS, steps: int = 32) -> dict:
+    """Device time by kernel over the decode steps at positions [end - steps, end).
 
     The same steps also run without the profiler just before and just after
     it.  The idle share reads the profiled device busy time against the run
     before; the run after shows how far the host-bound wall of the same
     device work moves inside one call.  The caches hold zeros, which changes
     no kernel's work: attention reads min(pos + 1, S) slots whatever they
-    hold.
+    hold.  The tokens are drawn from a seeded generator, a new one for every
+    row and step, so a MoE model routes them as it would a real batch; for
+    one, the grouped GEMMs' device time per step stands beside their byte
+    bound, counted from the experts that each step's routing touches.
     """
     from torch.profiler import ProfilerActivity, profile
 
-    end = PROMPT_LEN + NEW_TOKENS
+    from repro_torch.models.model import MoEBlock
+
+    cfg = model.cfg
     caches = model.init_caches(REQUESTS, end)
-    toks = torch.ones(REQUESTS, dtype=torch.long, device="cuda")
-    model.decode_step(caches, toks, end - steps - 1)
+    toks = torch.randint(1, cfg.vocab, (steps + 1, REQUESTS),
+                         generator=torch.Generator().manual_seed(5)).cuda()
+    model.decode_step(caches, toks[-1], end - steps - 1)
+    moe_blocks = [b for b in model.blocks if isinstance(b, MoEBlock)]
+    routes = []
 
     def run_steps() -> float:
+        routes.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for pos in range(end - steps, end):
-            model.decode_step(caches, toks, pos)
+        for i, pos in enumerate(range(end - steps, end)):
+            model.decode_step(caches, toks[i], pos)
+            routes.append([b.routing for b in moe_blocks])
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
@@ -886,44 +1067,146 @@ def phase_profile(model, steps: int = 32) -> dict:
 
     rows, per_kernel = _device_ms_per_launch(prof, SERVE_KERNELS)
     busy_ms = sum(r[1] for r in rows) / 1e3
-    return {"phase": "profile", "steps": steps, "positions": [end - steps, end - 1],
-            "wall_ms_per_step_profiled": wall_ms / steps,
-            "wall_ms_per_step_unprofiled": plain_before / steps,
-            "wall_ms_per_step_after_profiler": plain_after / steps,
-            "device_busy_ms_per_step": busy_ms / steps,
-            "device_idle_share_profiled": 1 - busy_ms / wall_ms,
-            "device_idle_share": 1 - busy_ms / plain_before,
-            "kernels": per_kernel,
-            "top": [{"name": key[:80], "device_ms_per_step": us / 1e3 / steps, "count": n}
-                    for key, us, n in rows[:12]]}
+    out = {"phase": "profile", "arch": cfg.name, "layers": cfg.n_layers, "steps": steps,
+           "positions": [end - steps, end - 1],
+           "wall_ms_per_step_profiled": wall_ms / steps,
+           "wall_ms_per_step_unprofiled": plain_before / steps,
+           "wall_ms_per_step_after_profiler": plain_after / steps,
+           "device_busy_ms_per_step": busy_ms / steps,
+           "device_idle_share_profiled": 1 - busy_ms / wall_ms,
+           "device_idle_share": 1 - busy_ms / plain_before,
+           "kernels": per_kernel,
+           "top": [{"name": key[:80], "device_ms_per_step": us / 1e3 / steps, "count": n}
+                   for key, us, n in rows[:12]]}
+    if moe_blocks:
+        keys = _grouped_gemm_keys(moe_blocks[0])
+        gemm_ms = sum(us for key, us, _ in rows if key in keys) / 1e3 / steps
+        touched = [[int(torch.unique(r).numel()) for r in step] for step in routes]
+        d, ff = cfg.d_model, cfg.d_ff
+        expert_bytes = 3 * d * ff * 2
+        tk = REQUESTS * cfg.experts_per_token  # rows of the grouped products a layer
+        act_bytes = (tk * d + 2 * tk * ff + tk * ff + tk * d) * 2  # xs, g, u, h, y
+        nbytes = sum(n * expert_bytes + act_bytes for step in touched for n in step)
+        flops = 2 * 3 * tk * d * ff * len(moe_blocks) * steps
+        b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+        out["grouped_gemm"] = {
+            "device_ms_per_step": gemm_ms, "bound_ms_per_step": b_ms / steps, "bound_by": b_by,
+            "kernels": sorted(k[:80] for k in keys),
+            "launches_per_step": sum(n for key, _, n in rows if key in keys) / steps,
+            "expert_bytes": expert_bytes,
+            "experts_touched_per_layer_mean": float(np.mean(touched)),
+            "experts_touched_per_layer_min_max": [int(np.min(touched)), int(np.max(touched))],
+            "bytes_per_step": nbytes / steps}
+    return out
+
+
+def phase_families(card: str) -> dict:
+    """Every other attention-family config at full width with its depth cut
+    (FAMILIES): REQUESTS x (FAMILY_PROMPT + FAMILY_NEW) tokens through
+    ServeEngine with exact kernel launches, ms per step, peak memory and a
+    profile of the last decode steps.  decode_attention at each config's head
+    layout beside SDPA is timed in the kernels phase (_family_heads)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.models import Model
+    from repro_torch.models.model import decode_launches
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    dev = torch.device("cuda")
+    out, t_start = {}, time.perf_counter()
+    for arch, layers in FAMILIES.items():
+        full = get_config(arch)
+        cfg = full.with_(n_layers=layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = Model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        prompts = np.random.default_rng(0).integers(1, cfg.vocab,
+                                                    (REQUESTS, FAMILY_PROMPT)).tolist()
+        caches = model.init_caches(REQUESTS, 8)
+        logits, _ = model.decode_step(caches, torch.tensor([p[0] for p in prompts], device=dev), 0)
+        if logits.shape != (REQUESTS, cfg.vocab) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{arch}: bad first-step logits {tuple(logits.shape)}")
+        del caches
+        ServeEngine(model, ServeConfig(max_batch=REQUESTS)).generate([p[:4] for p in prompts], 2)
+        eng = ServeEngine(model, ServeConfig(max_batch=REQUESTS))
+        torch.cuda.synchronize()
+        rmsnorm_cuda.launches = decode_attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        outs = eng.generate(prompts, FAMILY_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = FAMILY_PROMPT + FAMILY_NEW
+        launches = {"rmsnorm": rmsnorm_cuda.launches,
+                    "decode_attention": decode_attention_cuda.launches}
+        expect = {k: n * steps for k, n in decode_launches(cfg).items()}
+        if launches != expect:
+            raise AssertionError(f"{arch}: kernel launches {launches} != {expect}")
+        if not all(len(o) == steps and all(0 <= t < cfg.vocab for t in o) for o in outs):
+            raise AssertionError(f"{arch}: served outputs have the wrong length or token range")
+        entry = {"layers": layers, "cut": {"n_layers": [full.n_layers, layers]},
+                 "params": model.n_params(), "init_s": init_s, "launches": launches,
+                 "wall_s": wall, "ms_per_step": wall * 1e3 / steps,
+                 "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        prof = phase_profile(model, end=steps, steps=8)
+        entry["profile"] = {k: prof[k] for k in ("device_busy_ms_per_step",
+                                                 "wall_ms_per_step_unprofiled",
+                                                 "device_idle_share", "kernels", "top")}
+        if "grouped_gemm" in prof:
+            entry["profile"]["grouped_gemm"] = prof["grouped_gemm"]
+        del model, eng
+        torch.cuda.empty_cache()
+        out[arch] = entry
+    return {"phase": "families", "requests": REQUESTS, "prompt_len": FAMILY_PROMPT,
+            "new_tokens": FAMILY_NEW, "dtype": "bfloat16", "card": card,
+            "seconds": time.perf_counter() - t_start, "configs": out}
 
 
 def phase_parity() -> dict:
+    """Each attention family's reduced config in float32 on the card and on
+    the CPU, on the same weights: first-step logits within F32_LOGIT_TOL,
+    the MoE routing indices of every step identical, and greedy tokens and
+    engine stats identical."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import Model
+    from repro_torch.models.model import MoEBlock
     from repro_torch.serving import ServeConfig, ServeEngine
 
-    cfg = reduced(get_config("gemma3-1b")).with_(param_dtype=torch.float32)
-    gpu = Model(cfg).init(torch.Generator().manual_seed(1))
-    cpu = Model(cfg, device="cpu")
-    cpu.load_state_dict(gpu.state_dict())
-    toks = torch.tensor([5, 9])
-    lg, _ = gpu.decode_step(gpu.init_caches(2, 4), toks.cuda(), 0)
-    lc, _ = cpu.decode_step(cpu.init_caches(2, 4), toks, 0)
-    err = (lg.cpu() - lc).abs().max().item()
-    if not err <= F32_LOGIT_TOL:
-        raise AssertionError(f"first-step logits differ by {err} > {F32_LOGIT_TOL}")
-    prompts = [[5, 6, 7], [9, 10], [1, 2, 3, 4],
-               np.random.default_rng(1).integers(1, cfg.vocab, 21).tolist()]
-    res = {}
-    for name, model in (("cuda", gpu), ("cpu", cpu)):
-        eng = ServeEngine(model, ServeConfig(max_batch=2))
-        res[name] = (eng.generate(prompts, 12), dict(eng.stats))
-    if res["cuda"] != res["cpu"]:
-        raise AssertionError("greedy tokens or stats differ between the card and the CPU")
-    return {"phase": "parity", "config": "gemma3-1b reduced, float32",
-            "first_step_logit_max_abs_err": err, "tolerance": F32_LOGIT_TOL,
-            "greedy_tokens_identical": True, "stats": res["cuda"][1]}
+    out = {}
+    for arch in PARITY_ARCHS:
+        cfg = reduced(get_config(arch)).with_(param_dtype=torch.float32)
+        gpu = Model(cfg).init(torch.Generator().manual_seed(1))
+        cpu = Model(cfg, device="cpu")
+        cpu.load_state_dict(gpu.state_dict())
+        gc, cc = gpu.init_caches(2, 12), cpu.init_caches(2, 12)
+        err, routes_equal = 0.0, 0
+        for pos in range(8):
+            toks = torch.tensor([5 + pos, 9])
+            lg, _ = gpu.decode_step(gc, toks.cuda(), pos)
+            lc, _ = cpu.decode_step(cc, toks, pos)
+            if pos == 0:
+                err = (lg.cpu() - lc).abs().max().item()
+            for gb, cb in zip(gpu.blocks, cpu.blocks):
+                if isinstance(cb, MoEBlock):
+                    if not torch.equal(gb.routing.cpu(), cb.routing):
+                        raise AssertionError(f"{arch}: routing differs at step {pos}")
+                    routes_equal += 1
+        if not err <= F32_LOGIT_TOL:
+            raise AssertionError(f"{arch}: first-step logits differ by {err} > {F32_LOGIT_TOL}")
+        prompts = [[5, 6, 7], [9, 10], [1, 2, 3, 4],
+                   np.random.default_rng(1).integers(1, cfg.vocab, 21).tolist()]
+        res = {}
+        for name, model in (("cuda", gpu), ("cpu", cpu)):
+            eng = ServeEngine(model, ServeConfig(max_batch=2))
+            res[name] = (eng.generate(prompts, 12), dict(eng.stats))
+        if res["cuda"] != res["cpu"]:
+            raise AssertionError(f"{arch}: greedy tokens or stats differ between card and CPU")
+        out[arch] = {"first_step_logit_max_abs_err": err, "routing_checks": routes_equal,
+                     "greedy_tokens_identical": True, "stats": res["cuda"][1]}
+    return {"phase": "parity", "dtype": "float32", "tolerance": F32_LOGIT_TOL, "configs": out}
 
 
 def main() -> int:
@@ -946,27 +1229,33 @@ def main() -> int:
     allreduce = phase_gemv_allreduce()
     emit(allreduce)
     emit(phase_scans())
-    model, serve = phase_serve(card)
-    emit(serve)
-    profile = phase_profile(model)
-    emit(profile)
-    del model
-    torch.cuda.empty_cache()
+    serves, profiles = {}, {}
+    for arch in ("gemma3-1b", MAIN_ARCH):  # slice 1's path, then this slice's main path
+        model, serves[arch] = phase_serve(card, arch)
+        emit(serves[arch])
+        profiles[arch] = phase_profile(model)
+        emit(profiles[arch])
+        del model
+        torch.cuda.empty_cache()
+    emit(phase_families(card))
     emit(phase_parity())
 
     def launches_and_device_ms(name):
-        # the serve path's kernels: launches in the serve phase, mean device
-        # time per launch on that path (profile phase); gemv's: launches over
-        # every rank of the gemv_allreduce phase, device time per launch at
-        # the gemma3-27b shard (kernels phase).  `ms` is back-to-back calls by
-        # CUDA events, host dispatch included.
+        # the serve paths' kernels: launches in the main path's serve phase
+        # (olmoe-1b-7b), mean device time per launch on that path (its profile
+        # phase); gemv's: launches over every rank of the gemv_allreduce phase,
+        # device time per launch at the gemma3-27b shard (kernels phase).
+        # `ms` is back-to-back calls by CUDA events, host dispatch included.
         if name in SERVE_KERNELS:
-            return serve["launches"][name], profile["kernels"][name]["device_ms_per_launch"]
+            return (serves[MAIN_ARCH]["launches"][name],
+                    profiles[MAIN_ARCH]["kernels"][name]["device_ms_per_launch"])
         return allreduce["launches"][name], kernels[name]["device_ms"]
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          **dict(zip(("launches", "device_ms"), launches_and_device_ms(name))),
+         **({"launches_by_path": {f"{a} serve": serves[a]["launches"][name] for a in serves}}
+            if name in SERVE_KERNELS else {}),
          **{key: kernels[name][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms", "library_device_ms")},
          **{key: kernels[name][key] for key in ("cold_device_ms", "library_cold_device_ms",

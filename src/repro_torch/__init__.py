@@ -1,8 +1,10 @@
-"""PyTorch/CUDA port of ``repro``: gemma3-1b serving and the fused GEMV+AllReduce.
+"""PyTorch/CUDA port of ``repro``: serving of the attention families and the
+fused GEMV+AllReduce.
 
 The package mirrors ``repro``'s layout so every module has one counterpart
 to be held against: ``models/``, ``serving/``, ``launch/`` and ``configs/``
-(gemma3-1b decode), ``kernels/`` (the four Hopper kernels and their plain
+(forward, prefill and decode of the dense, sliding, MLA, M-RoPE and MoE
+configs), ``kernels/`` (the four Hopper kernels and their plain
 versions), ``distributed/`` (the fused GEMV+AllReduce and its companion
 collectives on ``torch.distributed``) and ``core/`` (the Eidola model's two
 spin-wait scans).  It imports ``torch`` only: no ``jax`` and nothing of

@@ -1,8 +1,10 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-The port serves the dense gemma3-1b only; the other architectures of the
-reference's registry join as their blocks are ported.  ``reduced()`` is a
-copy of the reference's family-preserving reduction for CPU tests.
+Every architecture of the reference's registry, copied as data.  The port
+serves the attention families (dense, sliding, MLA, M-RoPE, MoE and the
+stub frontends); ``Model`` refuses zamba2-2.7b and xlstm-125m, whose Mamba2
+and xLSTM blocks are the next slice.  ``reduced()`` is a copy of the
+reference's family-preserving reduction for CPU tests.
 """
 
 from __future__ import annotations
@@ -10,14 +12,47 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 from ..models.common import ModelConfig
-from . import gemma3_1b
+from . import (
+    gemma3_1b,
+    gemma3_27b,
+    kimi_k2_1t_a32b,
+    kimi_k2_mla,
+    minicpm3_4b,
+    musicgen_large,
+    olmoe_1b_7b,
+    qwen2_vl_7b,
+    starcoder2_7b,
+    xlstm_125m,
+    zamba2_2_7b,
+)
 
 REGISTRY: Dict[str, Callable[[], ModelConfig]] = {
+    "minicpm3-4b": minicpm3_4b.config,
+    "gemma3-27b": gemma3_27b.config,
+    "starcoder2-7b": starcoder2_7b.config,
     "gemma3-1b": gemma3_1b.config,
+    "qwen2-vl-7b": qwen2_vl_7b.config,
+    "zamba2-2.7b": zamba2_2_7b.config,
+    "kimi-k2-1t-a32b": kimi_k2_1t_a32b.config,
+    "olmoe-1b-7b": olmoe_1b_7b.config,
+    "xlstm-125m": xlstm_125m.config,
+    "musicgen-large": musicgen_large.config,
+    # beyond-pool variant (not an assigned cell; see its module docstring)
+    "kimi-k2-1t-mla": kimi_k2_mla.config,
 }
 
 META = {
+    "minicpm3-4b": minicpm3_4b.META,
+    "gemma3-27b": gemma3_27b.META,
+    "starcoder2-7b": starcoder2_7b.META,
     "gemma3-1b": gemma3_1b.META,
+    "qwen2-vl-7b": qwen2_vl_7b.META,
+    "zamba2-2.7b": zamba2_2_7b.META,
+    "kimi-k2-1t-a32b": kimi_k2_1t_a32b.META,
+    "olmoe-1b-7b": olmoe_1b_7b.META,
+    "xlstm-125m": xlstm_125m.META,
+    "musicgen-large": musicgen_large.META,
+    "kimi-k2-1t-mla": kimi_k2_mla.META,
 }
 
 

@@ -25,7 +25,7 @@ import torch
 __all__ = ["SOURCES", "BUILD_DIR", "DTYPE_CODE", "nvcc", "build", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("rmsnorm", "decode_attention", "gemv", "gemv_tiles")
+SOURCES = ("rmsnorm", "decode_attention", "gemv", "gemv_tiles", "empty")
 # <repo>/src/repro_torch/kernels/build.py -> <repo>/build/kernels (gitignored)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 CUDA_HOME = Path("/usr/local/cuda")

@@ -1,4 +1,4 @@
-"""Model zoo of the port: shared components and the dense decoder."""
+"""Model zoo of the port: shared components and the attention-family decoder."""
 
 from .common import ModelConfig, ParamSpec, count_params, materialize
 from .model import Model

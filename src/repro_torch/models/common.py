@@ -22,6 +22,7 @@ __all__ = [
     "ModelConfig",
     "ParamSpec",
     "materialize",
+    "fill_",
     "count_params",
     "rms_norm",
     "DEFAULT_PARAM_DTYPE",
@@ -108,6 +109,24 @@ class ModelConfig:
     def q_per_kv(self) -> int:
         return self.n_heads // max(1, self.n_kv_heads)
 
+    def layer_kind(self, i: int) -> str:
+        """What block sits at depth i (resolves hybrid/moe/sliding patterns)."""
+        if self.family == "ssm" and self.xlstm_pattern:
+            return "xlstm_" + self.xlstm_pattern[i % len(self.xlstm_pattern)]
+        if self.family == "hybrid":
+            return "mamba"
+        if self.n_experts > 0:
+            if i < self.first_dense_layers or (i % self.moe_every) != (
+                self.moe_every - 1
+            ):
+                # note: with moe_every=1 every layer is MoE after the leading
+                # dense layers
+                if self.moe_every == 1 and i >= self.first_dense_layers:
+                    return "moe"
+                return "dense"
+            return "moe"
+        return "dense"
+
     def is_global_attn(self, i: int) -> bool:
         if self.attn_kind != "sliding" or self.global_every <= 0:
             return True
@@ -118,6 +137,11 @@ class ModelConfig:
             raise ValueError(
                 f"n_heads {self.n_heads} is not a multiple of n_kv_heads "
                 f"{self.n_kv_heads}"
+            )
+        if self.n_experts and not 0 < self.experts_per_token <= self.n_experts:
+            raise ValueError(
+                f"experts_per_token {self.experts_per_token} is not in "
+                f"[1, n_experts = {self.n_experts}]"
             )
         return self
 
@@ -143,6 +167,29 @@ class ParamSpec:
             raise ValueError(f"axes {self.axes} do not match shape {self.shape}")
 
 
+def fill_(dst: torch.Tensor, s: ParamSpec, generator: torch.Generator) -> torch.Tensor:
+    """Fill ``dst`` in place as ``s`` says, drawing from ``generator``.
+
+    Normal draws are made in float32 on the generator's device and cast, as
+    the reference draws float32 and casts.  A stacked expert tensor (3-D) is
+    drawn one expert at a time, so the float32 draw never holds more than one
+    expert: kimi-k2's ``[384, 7168, 2048]`` at once would take 22.5 GB.
+    """
+    if s.init == "zeros":
+        return dst.zero_()
+    if s.init == "ones":
+        return dst.fill_(1)
+    fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
+    scale = s.scale if s.scale is not None else 1.0 / math.sqrt(fan_in)
+    if s.init == "embed":
+        scale = s.scale if s.scale is not None else 1.0
+    for part in (dst if dst.dim() >= 3 else [dst]):
+        v = torch.randn(part.shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        part.copy_(v * scale)
+    return dst
+
+
 def materialize(
     specs: Dict[str, ParamSpec],
     generator: torch.Generator,
@@ -150,28 +197,11 @@ def materialize(
 ) -> Dict[str, torch.Tensor]:
     """Real tensors for a ``{name: ParamSpec}`` dict, drawn in name order.
 
-    Normal draws are made in float32 on the generator's device and cast, as
-    the reference draws float32 and casts.  The stream is torch's, not
-    JAX's threefry: the tests carry the reference's weights across instead.
+    The stream is torch's, not JAX's threefry: the tests carry the
+    reference's weights across instead.
     """
-    out = {}
-    for name, s in specs.items():
-        if s.init == "zeros":
-            v = torch.zeros(s.shape, dtype=s.dtype, device=device)
-        elif s.init == "ones":
-            v = torch.ones(s.shape, dtype=s.dtype, device=device)
-        else:
-            fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
-            scale = s.scale if s.scale is not None else 1.0 / math.sqrt(fan_in)
-            if s.init == "embed":
-                scale = s.scale if s.scale is not None else 1.0
-            v = torch.randn(
-                s.shape, generator=generator, dtype=torch.float32,
-                device=generator.device,
-            )
-            v = (v * scale).to(device=device, dtype=s.dtype)
-        out[name] = v
-    return out
+    return {name: fill_(torch.empty(s.shape, dtype=s.dtype, device=device), s, generator)
+            for name, s in specs.items()}
 
 
 def count_params(specs: Dict[str, ParamSpec]) -> int:

@@ -2,7 +2,9 @@
 
 The reference keeps a scan stage's parameters stacked on a leading ``layers``
 dim (``{"embed", "final_norm", "stages": [{"ln1": [L, d], "attn": {...},
-...}]}``); the port keeps one block per layer.  :func:`params_from_jax`
+...}, ...]}``, one stage per entry of ``build_plan``: kimi-k2's dense first
+layer, then its MoE layers with expert tensors ``[L, E, d, ff]`` and a
+float32 router); the port keeps one block per layer.  :func:`params_from_jax`
 takes that tree with numpy leaves (bf16 leaves as ``ml_dtypes.bfloat16``
 arrays, as ``np.asarray`` gives them) and returns a ``state_dict`` for
 ``Model(cfg)``.  No JAX is imported: the caller converts to numpy.
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 
 from .common import ModelConfig
-from .model import param_specs
+from .model import build_plan, param_specs
 
 __all__ = ["params_from_jax"]
 
@@ -30,20 +32,22 @@ def _to_torch(a: Any) -> torch.Tensor:
 
 def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """``state_dict`` of ``Model(cfg)`` from the reference's numpy parameter tree."""
-    if len(np_tree["stages"]) != 1:
-        raise ValueError(f"expected one dense scan stage, got {len(np_tree['stages'])}")
-    stage = np_tree["stages"][0]
+    specs = param_specs(cfg)  # raises for a plan that is not ported
+    plan = build_plan(cfg)
+    if len(np_tree["stages"]) != len(plan):
+        raise ValueError(f"expected {len(plan)} scan stages, got {len(np_tree['stages'])}")
     flat: Dict[str, Any] = {"embed": np_tree["embed"], "final_norm": np_tree["final_norm"]}
-    for li in range(cfg.n_layers):
-        for name, leaf in stage.items():
-            if isinstance(leaf, dict):
-                flat.update({f"blocks.{li}.{name}.{k}": v[li] for k, v in leaf.items()})
-            else:
-                flat[f"blocks.{li}.{name}"] = leaf[li]
+    for st, stage in zip(plan, np_tree["stages"]):
+        for i in range(st.n):
+            li = st.layer_offset + i
+            for name, leaf in stage.items():
+                if isinstance(leaf, dict):
+                    flat.update({f"blocks.{li}.{name}.{k}": v[i] for k, v in leaf.items()})
+                else:
+                    flat[f"blocks.{li}.{name}"] = leaf[i]
     if "lm_head" in np_tree:
         flat["lm_head"] = np_tree["lm_head"]
 
-    specs = param_specs(cfg)
     if set(flat) != set(specs):
         raise ValueError(f"parameter names differ: missing {sorted(set(specs) - set(flat))}, "
                          f"unexpected {sorted(set(flat) - set(specs))}")

@@ -9,7 +9,7 @@ import torch.nn.functional as F
 
 from .common import ModelConfig, ParamSpec
 
-__all__ = ["mlp_specs", "mlp_apply"]
+__all__ = ["mlp_specs", "mlp_apply", "activation"]
 
 
 def mlp_specs(cfg: ModelConfig, d_ff: int | None = None) -> Dict[str, ParamSpec]:
@@ -27,7 +27,11 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def activation(cfg: ModelConfig):
+    """The gate's activation: GELU (tanh form) or SiLU."""
+    return _gelu_tanh if cfg.mlp_act == "gelu" else F.silu
+
+
 def mlp_apply(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    act = _gelu_tanh if cfg.mlp_act == "gelu" else F.silu
-    g = act(x @ p["w_gate"])
+    g = activation(cfg)(x @ p["w_gate"])
     return (g * (x @ p["w_up"])) @ p["w_down"]

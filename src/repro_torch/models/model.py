@@ -1,52 +1,102 @@
-"""Model assembly for serving (port of ``repro.models.model``, dense plan only).
+"""Model assembly: layer-stack plans, blocks, forward / prefill / decode
+(port of ``repro.models.model``, the attention families).
 
-The reference stacks a scan stage's parameters on a leading ``layers`` dim;
-the port keeps one :class:`DenseBlock` per layer in an ``nn.ModuleList``
-(``models/convert.py`` unstacks the reference's tree).  Serving walks the
-layers in a Python loop, as the reference's ``decode_step`` does, with a
-full-length KV cache on global layers and a ring buffer on local ones.
+``build_plan`` gives the reference's stages (``scan`` of homogeneous layers,
+``single``, ``shared``).  The reference stacks a scan stage's parameters on a
+leading ``layers`` dim; the port keeps one block module per layer
+(:class:`DenseBlock` or :class:`MoEBlock`) in an ``nn.ModuleList``, and
+``models/convert.py`` unstacks the reference's tree.  ``forward``,
+``prefill`` and ``decode_step`` walk the layers in a Python loop, under
+``torch.no_grad()``: training is a later slice.  The Mamba2 (hybrid) and
+xLSTM (ssm) blocks are the next slice, and :class:`Model` refuses their
+plans.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..device import resolve_device
-from .attention import attention_decode, attention_specs, init_kv_cache
-from .common import ModelConfig, ParamSpec, count_params, materialize, rms_norm
+from .attention import attention_apply, attention_decode, attention_specs, init_kv_cache
+from .common import ModelConfig, ParamSpec, count_params, fill_, rms_norm
 from .mlp import mlp_apply, mlp_specs
+from .moe import moe_apply, moe_specs
 
-__all__ = ["DenseBlock", "Model", "param_specs"]
+__all__ = ["Stage", "build_plan", "DenseBlock", "MoEBlock", "Model", "param_specs",
+           "decode_launches"]
+
+AUX_KEYS = ("moe_load_balance", "moe_z", "moe_dropped")
 
 
-def _block_specs(cfg: ModelConfig) -> Dict[str, ParamSpec | Dict[str, ParamSpec]]:
+@dataclass(frozen=True)
+class Stage:
+    kind: str          # scan | single | shared
+    block: str         # dense | moe | mamba | xlstm_m | xlstm_s
+    n: int             # layers in this stage (1 for single/shared)
+    layer_offset: int  # absolute index of the first layer in this stage
+
+
+def build_plan(cfg: ModelConfig) -> List[Stage]:
+    L = cfg.n_layers
+    if cfg.family == "hybrid" and cfg.attn_block_every > 0:
+        stages: List[Stage] = []
+        off = 0
+        while off < L:
+            n = min(cfg.attn_block_every, L - off)
+            stages.append(Stage("scan", "mamba", n, off))
+            off += n
+            if off < L or n == cfg.attn_block_every:
+                # zamba2: the SAME transformer block after every mamba group
+                stages.append(Stage("shared", "dense", 1, off))
+        return stages
+    if cfg.family == "ssm" and cfg.xlstm_pattern:
+        return [
+            Stage("single", "xlstm_" + cfg.xlstm_pattern[i % len(cfg.xlstm_pattern)], 1, i)
+            for i in range(L)
+        ]
+    if cfg.n_experts > 0:
+        fd = cfg.first_dense_layers
+        stages = []
+        if fd:
+            stages.append(Stage("scan", "dense", fd, 0))
+        stages.append(Stage("scan", "moe", L - fd, fd))
+        return stages
+    return [Stage("scan", "dense", L, 0)]
+
+
+def _layer_blocks(cfg: ModelConfig) -> List[str]:
+    """The block kind of each layer, from a plan of scan stages only."""
+    plan = build_plan(cfg)
+    if any(st.kind != "scan" or st.block not in _BLOCKS for st in plan):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} plan ({sorted({st.block for st in plan})}) "
+            "is not ported yet; its Mamba2 / xLSTM blocks are the next slice of the port"
+        )
+    return [st.block for st in plan for _ in range(st.n)]
+
+
+def _block_specs(cfg: ModelConfig, block: str) -> Dict[str, ParamSpec | Dict[str, ParamSpec]]:
     d, pd = cfg.d_model, cfg.param_dtype
-    return {
-        "ln1": ParamSpec((d,), ("embed",), pd, init="zeros"),
-        "attn": attention_specs(cfg),
-        "ln2": ParamSpec((d,), ("embed",), pd, init="zeros"),
-        "mlp": mlp_specs(cfg),
-    }
+    ln = lambda: ParamSpec((d,), ("embed",), pd, init="zeros")  # noqa: E731
+    ffn = {"mlp": mlp_specs(cfg)} if block == "dense" else {"moe": moe_specs(cfg)}
+    return {"ln1": ln(), "attn": attention_specs(cfg), "ln2": ln(), **ffn}
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     """``{state_dict name: ParamSpec}`` of :class:`Model`, in registration order."""
-    if cfg.family != "dense" or cfg.n_experts or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense plan is ported (family={cfg.family!r})"
-        )
     specs = {
         "embed": ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"),
                            cfg.param_dtype, init="embed", scale=0.02),
         "final_norm": ParamSpec((cfg.d_model,), ("embed",), cfg.param_dtype,
                                 init="zeros"),
     }
-    for li in range(cfg.n_layers):
-        for name, s in _block_specs(cfg).items():
+    for li, block in enumerate(_layer_blocks(cfg)):
+        for name, s in _block_specs(cfg, block).items():
             if isinstance(s, ParamSpec):
                 specs[f"blocks.{li}.{name}"] = s
             else:
@@ -57,33 +107,83 @@ def param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     return specs
 
 
+def decode_launches(cfg: ModelConfig) -> Dict[str, int]:
+    """Launches of each kernel in one ``decode_step`` on the card.
+
+    ``rmsnorm``: two a block and the final norm, plus MLA's latent norm (and
+    its query norm where the query is compressed) in every block.
+    ``decode_attention``: one a GQA block; MLA attends in plain torch.
+    """
+    L = cfg.n_layers
+    if cfg.attn_kind == "mla":
+        return {"rmsnorm": 2 * L + 1 + L * (2 if cfg.mla_q_rank else 1), "decode_attention": 0}
+    return {"rmsnorm": 2 * L + 1, "decode_attention": L}
+
+
 def _param(spec: ParamSpec, device: torch.device) -> nn.Parameter:
     return nn.Parameter(torch.zeros(spec.shape, dtype=spec.dtype, device=device),
                         requires_grad=False)
 
 
+def _zero_aux(device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.zeros((), dtype=torch.float32, device=device) for k in AUX_KEYS}
+
+
 class DenseBlock(nn.Module):
     """Pre-norm attention + gated MLP, both residual."""
 
-    def __init__(self, cfg: ModelConfig, device: torch.device):
+    kind = "dense"
+
+    def __init__(self, cfg: ModelConfig, device: torch.device, layer_idx: int):
         super().__init__()
         self.cfg = cfg
-        specs = _block_specs(cfg)
-        self.ln1 = _param(specs["ln1"], device)
-        self.attn = nn.ParameterDict({k: _param(s, device) for k, s in specs["attn"].items()})
-        self.ln2 = _param(specs["ln2"], device)
-        self.mlp = nn.ParameterDict({k: _param(s, device) for k, s in specs["mlp"].items()})
+        self.layer_idx = layer_idx
+        for name, s in _block_specs(cfg, self.kind).items():
+            setattr(self, name, _param(s, device) if isinstance(s, ParamSpec) else
+                    nn.ParameterDict({k: _param(v, device) for k, v in s.items()}))
+
+    def ffn(self, h: torch.Tensor, aux: bool = True):
+        """``(y, aux losses)`` of the block's feed-forward half."""
+        return mlp_apply(self.cfg, self.mlp, h), _zero_aux(h.device) if aux else None
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+        """Full causal pass: ``(x, aux losses, cache entry)``."""
+        cfg = self.cfg
+        a, kv = attention_apply(cfg, self.attn, rms_norm(x, self.ln1, cfg.norm_eps), positions,
+                                is_global=cfg.is_global_attn(self.layer_idx))
+        x = x + a
+        y, aux = self.ffn(rms_norm(x, self.ln2, cfg.norm_eps))
+        return x + y, aux, kv
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int):
         cfg = self.cfg
         a, cache = attention_decode(cfg, self.attn, rms_norm(x, self.ln1, cfg.norm_eps),
                                     cache, pos)
         x = x + a
-        return x + mlp_apply(cfg, self.mlp, rms_norm(x, self.ln2, cfg.norm_eps)), cache
+        y, _ = self.ffn(rms_norm(x, self.ln2, cfg.norm_eps), aux=False)
+        return x + y, cache
+
+
+class MoEBlock(DenseBlock):
+    """Pre-norm attention + routed experts, both residual.
+
+    ``routing`` holds the top-k expert indices ``[tokens, k]`` of the last
+    call, on the block's device, for a caller that checks or counts them.
+    """
+
+    kind = "moe"
+
+    def ffn(self, h: torch.Tensor, aux: bool = True):
+        y, losses, self.routing = moe_apply(self.cfg, self.moe, h, aux=aux)
+        return y, {**_zero_aux(h.device), **losses} if aux else None
+
+
+_BLOCKS = {"dense": DenseBlock, "moe": MoEBlock}
 
 
 class Model(nn.Module):
-    """Dense decoder for serving; parameters live on ``device`` (the card by default).
+    """Decoder of the attention families; parameters live on ``device`` (the
+    card by default).
 
     The constructor allocates zeroed parameters; :meth:`init` draws them from
     a seeded ``torch.Generator`` and ``load_state_dict`` loads given ones
@@ -93,11 +193,12 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device: str | torch.device | None = None):
         super().__init__()
         self.cfg = cfg.validate()
+        specs = param_specs(cfg)  # raises for a plan that is not ported
         self.device = resolve_device(device)
-        specs = param_specs(cfg)
         self.embed = _param(specs["embed"], self.device)
         self.final_norm = _param(specs["final_norm"], self.device)
-        self.blocks = nn.ModuleList(DenseBlock(cfg, self.device) for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(_BLOCKS[block](cfg, self.device, li)
+                                    for li, block in enumerate(_layer_blocks(cfg)))
         if not cfg.tie_embeddings:
             self.lm_head = _param(specs["lm_head"], self.device)
 
@@ -108,10 +209,11 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
-        """Draw every parameter from ``generator`` (seeded by the caller)."""
+        """Draw every parameter from ``generator`` (seeded by the caller), in
+        place and one tensor at a time."""
         own = dict(self.named_parameters())
-        for name, value in materialize(self.param_specs(), generator, self.device).items():
-            own[name].copy_(value)
+        for name, spec in self.param_specs().items():
+            fill_(own[name], spec, generator)
         return self
 
     def n_params(self) -> int:
@@ -119,8 +221,14 @@ class Model(nn.Module):
 
     # -- embedding / head -------------------------------------------------------
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed[tokens]
+    def _embed(self, tokens: Optional[torch.Tensor] = None,
+               embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token embeddings, or the frontend's ``embeds [B, S, d_model]``
+        (qwen2-vl's and musicgen's stub frontends) in the param dtype."""
+        if embeds is not None:
+            x = torch.as_tensor(embeds, device=self.device).to(self.cfg.param_dtype)
+        else:
+            x = self.embed[torch.as_tensor(tokens, device=self.device)]
         if self.cfg.scale_embed:
             # sqrt(d_model) rounded to the activation dtype first, as in the
             # reference: 33.94 becomes 34.0 in bf16
@@ -137,6 +245,28 @@ class Model(nn.Module):
             logits = torch.tanh(logits / c) * c
         return logits
 
+    # -- full forward -------------------------------------------------------------
+
+    def _layers(self, x: torch.Tensor):
+        """Every block's full causal pass: ``(x, summed aux losses, cache entries)``."""
+        B, S = x.shape[:2]
+        positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+        aux_total = _zero_aux(x.device)
+        kvs = []
+        for block in self.blocks:
+            x, aux, kv = block(x, positions)
+            aux_total = {k: aux_total[k] + aux[k] for k in AUX_KEYS}
+            kvs.append(kv)
+        return x, aux_total, kvs
+
+    @torch.no_grad()
+    def forward(self, tokens: Optional[torch.Tensor] = None, *,
+                embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Full causal forward: ``(logits [B, S, V] float32, aux losses)``."""
+        x, aux, _ = self._layers(self._embed(tokens, embeds))
+        return self._head(x), aux
+
     # -- serving ----------------------------------------------------------------
 
     def init_caches(self, batch: int, max_len: int):
@@ -144,16 +274,48 @@ class Model(nn.Module):
                 for li in range(self.cfg.n_layers)]
 
     @torch.no_grad()
+    def prefill(self, tokens: Optional[torch.Tensor] = None, *,
+                embeds: Optional[torch.Tensor] = None):
+        """Process a whole prompt: ``(last-token logits [B, V], caches)``.
+
+        The caches are the reference's: ``S`` slots on global layers (and MLA
+        latents), a ring of ``min(window, S)`` slots on local ones.
+        """
+        x, _, kvs = self._layers(self._embed(tokens, embeds))
+        S = x.shape[1]
+        caches = [self._prefill_cache(kv, li, S) for li, kv in enumerate(kvs)]
+        return self._head(x[:, -1:, :])[:, 0, :], caches
+
+    def _prefill_cache(self, kv, layer_idx: int, S: int) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        if cfg.attn_kind == "mla":
+            c_kv, k_pe = kv
+            return {"c_kv": c_kv, "k_pe": k_pe}
+        k, v = kv
+        if cfg.attn_kind == "sliding" and not cfg.is_global_attn(layer_idx):
+            # the last w tokens, each at its ring slot pos % window
+            w = min(cfg.sliding_window, S)
+            idx = torch.arange(S - w, S, device=k.device) % cfg.sliding_window
+            kc = torch.zeros((k.shape[0], w, *k.shape[2:]), dtype=k.dtype, device=k.device)
+            vc = torch.zeros_like(kc)
+            kc[:, idx] = k[:, S - w:]
+            vc[:, idx] = v[:, S - w:]
+            return {"k": kc, "v": vc}
+        return {"k": k, "v": v}
+
+    @torch.no_grad()
     def decode_step(
-        self, caches: List[Dict[str, torch.Tensor]], tokens: torch.Tensor, pos: int
+        self, caches: List[Dict[str, torch.Tensor]], tokens: Optional[torch.Tensor], pos: int,
+        *, embeds: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
         """One token for every sequence in the batch.
 
-        tokens: int[B]; pos: tokens already in the cache.  The caches are
-        written in place.  Returns (logits [B, V] float32, caches).
+        tokens: int[B] (or None with ``embeds [B, 1, d_model]``); pos: tokens
+        already in the cache.  The caches are written in place.  Returns
+        (logits [B, V] float32, caches).
         """
-        tokens = torch.as_tensor(tokens, device=self.device)
-        x = self._embed(tokens[:, None])
+        tokens = None if tokens is None else torch.as_tensor(tokens, device=self.device)[:, None]
+        x = self._embed(tokens, embeds)
         for block, cache in zip(self.blocks, caches):
             x, _ = block.decode(x, cache, pos)
         return self._head(x)[:, 0, :], caches

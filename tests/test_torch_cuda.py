@@ -25,7 +25,8 @@ from repro_torch.kernels.decode_attention import (DecodeAttentionPlan, decode_at
 from repro_torch.kernels.gemv import GemvPlan, gemv_cuda, gemv_plan
 from repro_torch.kernels.gemv_tiles import gemv_tiles_cuda, remote_first_order, tile_plan
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
-from repro_torch.models import Model
+from repro_torch.models import Model, moe
+from repro_torch.models.model import decode_launches
 from repro_torch.serving import ServeConfig, ServeEngine
 
 pytestmark = pytest.mark.cuda
@@ -230,6 +231,70 @@ def test_serve_on_the_card_matches_the_cpu(cuda):
         eng = ServeEngine(model, ServeConfig(max_batch=2))
         outs[name] = (eng.generate(prompts, 12), eng.stats)
     assert outs["gpu"] == outs["cpu"]
+
+
+ATTENTION_ARCHS = ["gemma3-1b", "gemma3-27b", "kimi-k2-1t-a32b", "kimi-k2-1t-mla", "minicpm3-4b",
+                   "musicgen-large", "olmoe-1b-7b", "qwen2-vl-7b", "starcoder2-7b"]
+
+
+@pytest.mark.parametrize("arch", ATTENTION_ARCHS)
+def test_decode_steps_of_each_family_on_the_card_match_the_cpu(cuda, arch):
+    cfg = reduced(get_config(arch)).with_(param_dtype=torch.float32)
+    gpu = Model(cfg).init(torch.Generator().manual_seed(1))
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    gc, cc = gpu.init_caches(2, 12), cpu.init_caches(2, 12)
+    before = (rmsnorm_cuda.launches, decode_attention_cuda.launches)
+    for pos in range(8):
+        toks = torch.tensor([5 + pos, 9])
+        lg, gc = gpu.decode_step(gc, toks.to(cuda), pos)
+        lc, cc = cpu.decode_step(cc, toks, pos)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+        for gb, cb in zip(gpu.blocks, cpu.blocks):
+            if hasattr(cb, "routing"):
+                assert torch.equal(gb.routing.cpu(), cb.routing)
+    expect = decode_launches(cfg)
+    assert (rmsnorm_cuda.launches - before[0], decode_attention_cuda.launches - before[1]
+            ) == (8 * expect["rmsnorm"], 8 * expect["decode_attention"])
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "kimi-k2-1t-a32b", "kimi-k2-1t-mla"])
+def test_moe_decode_step_waits_on_the_host_for_nothing(cuda, arch):
+    model = Model(reduced(get_config(arch))).init(torch.Generator(device="cuda").manual_seed(0))
+    caches = model.init_caches(4, 8)
+    toks = torch.tensor([1, 2, 3, 4], device=cuda)
+    model.decode_step(caches, toks, 0)  # first use: kernels built, plans cached
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, _ = model.decode_step(caches, toks, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(logits).all()
+
+
+@pytest.mark.parametrize("rows,E,d,ff", [(32, 64, 2048, 1024), (18, 8, 64, 128)])
+def test_grouped_ffn_on_the_card_matches_its_plain_version(cuda, rows, E, d, ff):
+    cfg = get_config("olmoe-1b-7b").with_(n_experts=E, d_model=d, d_ff=ff)
+    g = torch.Generator(device="cpu").manual_seed(4)
+    p = {k: (torch.randn(shape, generator=g) * shape[-2] ** -0.5).to(cuda, torch.bfloat16)
+         for k, shape in (("w_gate", (E, d, ff)), ("w_up", (E, d, ff)), ("w_down", (E, ff, d)))}
+    xs = torch.randn(rows, d, generator=g).to(cuda, torch.bfloat16)
+    # rows for the first half of the experts only: the others' groups are empty
+    counts = torch.bincount(torch.randint(0, E // 2, (rows,), generator=g), minlength=E)
+    offsets = torch.cumsum(counts, 0).to(cuda, torch.int32)
+    y = moe.grouped_ffn(cfg, p, xs, offsets)
+    y_plain = moe.grouped_ffn_ref(cfg, {k: v.float() for k, v in p.items()}, xs.float(), offsets)
+    assert y.dtype == torch.bfloat16 and y.shape == (rows, d)
+    torch.testing.assert_close(y.float(), y_plain, rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("D", [256, 512, 768, 1536, 2048])
+def test_rmsnorm_kernel_at_the_mla_and_olmoe_widths(cuda, D):
+    x = _randn((4, 1, D), torch.bfloat16, cuda, 5)
+    g = _randn((D,), torch.bfloat16, cuda, 6) * 0.2
+    torch.testing.assert_close(rmsnorm_cuda(x, g).float(), ref.rmsnorm_ref(x.float(), g.float()),
+                               **TOL["bfloat16"])
 
 
 def _gemv_operands(M, K, N, dtype, layout, device, seed):

@@ -36,7 +36,8 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env, check=True,
                          capture_output=True, text=True, timeout=120).stdout.split()
     assert out == [str(expected), "[]"]
-    assert expected >= 27  # every module of both slices was walked
+    assert expected >= 39  # every module of the slices so far was walked, moe.py and
+    # the ten configs of the attention-family slice among them
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
