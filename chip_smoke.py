@@ -23,10 +23,13 @@ Phases, each printing one JSON line:
            tolerance must reject; rmsnorm and decode_attention at the main
            path's shapes (olmoe-1b-7b: x [4, 1, 2048]; q [4, 16, 128] against
            k/v [4, 544, 16, 128]) beside their plain versions and library
-           calls, the empty kernel's device time in the same profile as
-           rmsnorm and F.rms_norm (the launch floor), and decode_attention at
-           the head layout of each GQA config of the families phase beside
-           SDPA (S 40 and 544);
+           calls; rmsnorm's two layouts (a CTA a row, a warp a row where it
+           fits) in one profile with F.rms_norm and the empty kernel (the
+           launch floor) at D 2048, 1152, 768 and 2560, and rmsnorm against
+           its plain version at every width the port's norms take, bf16 and
+           float32, each layout; decode_attention at the head layout of each
+           GQA config of the families phase and of zamba2-2.7b's shared block
+           (32, 32, 80) beside SDPA (S 40 and 544);
   gemv_allreduce  the fused GEMV+AllReduce and the unfused psum_matmul on 4
            ranks (4 processes sharing the card, a gloo group exchanging
            through host memory) at the paper's Table-1 shape and at
@@ -34,12 +37,14 @@ Phases, each printing one JSON line:
            its result, its owner_served schedule and its kernel launches;
   scans    the Eidola model's replay_lane and spin_reads on the card against
            their numpy closed forms, exactly;
-  serve    gemma3-1b (slice 1's path), then this slice's main path,
-           olmoe-1b-7b (6.92 B parameters, 64 experts top-8), both at full
-           width (random bf16 weights from a seeded generator) through
-           ServeEngine: 4 requests x (480 + 64) tokens, asserting the
-           launches of each kernel per step (53 / 26 rmsnorm /
-           decode_attention for gemma3-1b, 33 / 16 for olmoe);
+  serve    gemma3-1b (slice 1's path), the main path olmoe-1b-7b (6.92 B
+           parameters, 64 experts top-8), then zamba2-2.7b (2.42 B, 54 Mamba2
+           layers and one shared attention block applied 9 times) and
+           xlstm-125m, all at full width and depth (random bf16 weights from a
+           seeded generator) through ServeEngine: 4 requests x (480 + 64)
+           tokens, asserting the launches of each kernel per step (53 / 26
+           rmsnorm / decode_attention for gemma3-1b, 33 / 16 for olmoe, 73 / 9
+           for zamba2, 13 / 0 for xlstm), with parameter and cache bytes;
   profile  after each serve phase, device time by kernel over the last
            decode steps (torch.profiler), beside the wall of the same steps
            run without the profiler; for olmoe the grouped GEMMs' device time
@@ -47,10 +52,11 @@ Phases, each printing one JSON line:
   families the other attention configs at full width with their depth cut
            (gemma3-27b to 6 layers, the rest to 2): 4 x (32 + 8) tokens each,
            exact launches, ms per step, peak memory and a profile;
-  parity   every attention family's reduced config in float32 through the
-           decode step and ServeEngine on the card and on the CPU: first-step
-           logits close, MoE routing identical at every step, greedy tokens
-           and stats identical.
+  parity   every family's reduced config (the nine attention configs,
+           zamba2 and xlstm) in float32 through the decode step and
+           ServeEngine on the card and on the CPU: first-step logits close,
+           MoE routing identical at every step, greedy tokens and stats
+           identical.
 Then the kernel summary line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Any failure raises: the script exits non-zero
 and prints no result.  Without a CUDA device it exits 2 at once.
@@ -101,9 +107,25 @@ OLMOE_HEADS = {"d_model": 2048, "H": 16, "KV": 16, "D": 128}
 FAMILIES = {"gemma3-27b": 6, "starcoder2-7b": 2, "qwen2-vl-7b": 2, "minicpm3-4b": 2,
             "musicgen-large": 2, "kimi-k2-1t-a32b": 2, "kimi-k2-1t-mla": 2}
 FAMILY_PROMPT, FAMILY_NEW = 32, 8
-# every attention family, reduced, in float32 on the card and on the CPU
+# every family, reduced, in float32 on the card and on the CPU
 PARITY_ARCHS = ("gemma3-1b", "gemma3-27b", "starcoder2-7b", "qwen2-vl-7b", "minicpm3-4b",
-                "musicgen-large", "olmoe-1b-7b", "kimi-k2-1t-a32b", "kimi-k2-1t-mla")
+                "musicgen-large", "olmoe-1b-7b", "kimi-k2-1t-a32b", "kimi-k2-1t-mla",
+                "zamba2-2.7b", "xlstm-125m")
+# the serve paths at full width and full depth, in order: slice 1's, the main
+# path, then this slice's two recurrent configs
+SERVE_ARCHS = ("gemma3-1b", MAIN_ARCH, "zamba2-2.7b", "xlstm-125m")
+# kernel launches a decode step on each serve path: zamba2's 54 Mamba ln1,
+# 9 x 2 in the shared block and the final norm; xlstm's 12 ln1 and the final
+SERVE_LAUNCHES_PER_STEP = {
+    "gemma3-1b": {"rmsnorm": 53, "decode_attention": 26},
+    MAIN_ARCH: {"rmsnorm": 33, "decode_attention": 16},
+    "zamba2-2.7b": {"rmsnorm": 73, "decode_attention": 9},
+    "xlstm-125m": {"rmsnorm": 13, "decode_attention": 0},
+}
+# rmsnorm timed beside F.rms_norm and the empty kernel at these widths too
+# (olmoe's 2048 and gemma3-1b's 1152 are timed as the paths' own): xlstm-125m's
+# and zamba2-2.7b's d_model
+RMSNORM_WIDTHS = (768, 2560)
 
 # The fused GEMV+AllReduce's shapes: y[B, N] = x[B, K] @ w[K, N], K split over
 # RANKS ranks, so each rank's kernels see A = w_shard.T [N, K / RANKS] and x.T
@@ -130,6 +152,15 @@ ATTENTION_COLD_BYTES = 100e6  # K and V copies a cold attention timing rotates o
 ATTENTION_HEADS = {"gemma3_27b": (32, 16, 128), "qwen2_vl_7b": (28, 4, 128),
                    "kimi_k2": (64, 8, 112)}
 ATTENTION_CHUNKS = (16, 32, 64, 128)  # the measured plan variants at the serve shape
+
+
+# torch.profiler on the card drops activity records now and then, in bursts
+# that can span several sessions in a row (a session may lose a few of its
+# launches or all of them; a long session can lose its first records).  A
+# profile whose launches do not add up is made again, after a pause that
+# grows, up to this many sessions in all.
+PROFILE_ATTEMPTS = 8
+PROFILE_PAUSE_S = 0.25
 
 
 def emit(obj: dict) -> None:
@@ -198,7 +229,27 @@ def _worst_ratio(out: torch.Tensor, want: torch.Tensor, tol: dict = BF16_TOL) ->
     return ((out.float() - want).abs() / lim).max().item()
 
 
-def _device_ms_per_launch(prof, names) -> tuple[list, dict]:
+def _profiled(warmup, run) -> tuple:
+    """``(key_averages, run's result)``: ``run()`` under torch.profiler after
+    one warm-up cycle of ``warmup()`` whose events are dropped: a long
+    session can miss its first records, so the measured calls come only
+    after the tracer has run for a cycle."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    ready = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: ready.append(p.key_averages())) as prof:
+        warmup()
+        torch.cuda.synchronize()
+        prof.step()
+        out = run()
+        torch.cuda.synchronize()
+        prof.step()
+    return ready[0], out
+
+
+def _device_ms_per_launch(averages, names) -> tuple[list, dict]:
     """The profile's device rows ``(name, µs, count)``, longest first, and the
     mean device time per launch of each named kernel (None if it is absent)."""
 
@@ -208,13 +259,19 @@ def _device_ms_per_launch(prof, names) -> tuple[list, dict]:
                 return float(getattr(evt, attr))
         return 0.0
 
-    # device-side events only: a CPU op's entry repeats its kernels' time
-    rows = [(evt.key, device_us(evt), evt.count) for evt in prof.key_averages()
-            if str(getattr(evt, "device_type", "")).endswith("CUDA")]
+    # device-side events only: a CPU op's entry repeats its kernels' time, and
+    # the profiler's step annotation (ProfilerStep*) spans the whole step
+    rows = [(evt.key, device_us(evt), evt.count) for evt in averages
+            if str(getattr(evt, "device_type", "")).endswith("CUDA")
+            and not evt.key.startswith("ProfilerStep")]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
-    return rows, {name: next(({"device_ms_per_launch": us / 1e3 / n, "launches": n}
-                              for key, us, n in rows if f"{name}_kernel" in key), None)
-                  for name in names}
+    per_kernel = {}
+    for name in names:  # summed over the kernel's instantiations (rmsnorm: one per width class)
+        mine = [(us, n) for key, us, n in rows if f"{name}_kernel" in key]
+        n = sum(c for _, c in mine)
+        per_kernel[name] = ({"device_ms_per_launch": sum(us for us, _ in mine) / 1e3 / n,
+                             "launches": n} if n else None)
+    return rows, per_kernel
 
 
 def _gemv_controls(a: torch.Tensor, x: torch.Tensor, y_plain: torch.Tensor) -> dict:
@@ -230,41 +287,49 @@ def _gemv_controls(a: torch.Tensor, x: torch.Tensor, y_plain: torch.Tensor) -> d
             "one_slab_dropped": (y_plain - slabs[K // vec // 2]).to(torch.bfloat16)}
 
 
-def _profile_calls(calls: dict, operands: list, reps: int = 20, attempts: int = 3) -> dict:
+def _profile_calls(calls: dict, operands: list, reps: int = 20,
+                   attempts: int = PROFILE_ATTEMPTS, match: dict | None = None) -> dict:
     """Device ms per call of each labelled call, from one torch.profiler run.
 
     ``calls`` maps a label to a function of one operand: a kernel of the port
-    (its label is the kernel's name) or ``"library"``, the PyTorch call it is
-    held against.  The calls take turns, each on the next of ``operands``, so
+    (its label is the kernel's name, or ``match`` maps it to a predicate on
+    the profiler's kernel name) or ``"library"``, the PyTorch call it is held
+    against.  The calls take turns, each on the next of ``operands``, so
     with copies enough that the L2 cannot hold them every call finds its
     operand cold.  Device rows of the port's kernels are matched by name,
     memsets (the kernels' counters) apart, and every other device row is the
     library call's.  Also returns ``"memset"``: memset ms per profiled call of
     a port kernel.  A run in which the profiler missed launches (it can drop
-    activity records) is made again, up to ``attempts`` runs in all.
+    activity records) is made again after a pause, up to ``attempts`` runs in
+    all.
     """
-    from torch.profiler import ProfilerActivity, profile
-
     ours = [k for k in calls if k != "library"]
-    for fn in calls.values():  # warm-up, outside the profile
-        fn(operands[0])
-    seen = None
-    for _ in range(attempts):
-        torch.cuda.synchronize()
+    matches = {k: (match or {}).get(k, lambda key, k=k: f"::{k}_kernel<" in key) for k in ours}
+
+    def warmup():
+        for fn in calls.values():
+            fn(operands[0])
+
+    def run():
         j = 0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                for fn in calls.values():
-                    fn(operands[j % len(operands)])
-                    j += 1
-            torch.cuda.synchronize()
-        rows, _ = _device_ms_per_launch(prof, ())
+        for _ in range(reps):
+            for fn in calls.values():
+                fn(operands[j % len(operands)])
+                j += 1
+
+    warmup()  # outside the profile too: builds, plans, allocator
+    seen = None
+    for attempt in range(attempts):
+        time.sleep(PROFILE_PAUSE_S * attempt)
+        torch.cuda.synchronize()
+        averages, _ = _profiled(warmup, run)
+        rows, _ = _device_ms_per_launch(averages, ())
         out = {k: 0.0 for k in calls}
         out["memset"] = 0.0
         seen = {}
         total_us = {}
         for key, us, n in rows:
-            mine = next((k for k in ours if f"::{k}_kernel<" in key), None)
+            mine = next((k for k in ours if matches[k](key)), None)
             if mine is not None:  # a kernel may show under more than one key
                 seen[mine] = seen.get(mine, 0) + n
                 total_us[mine] = total_us.get(mine, 0.0) + us
@@ -533,11 +598,11 @@ def _attention_sweep(gen: torch.Generator, sms: int) -> dict:
 def _rmsnorm_at(gen: torch.Generator, d: int) -> dict:
     """rmsnorm at a serve path's shape, x [B, 1, d] bf16: checked against the
     plain version, timed by events beside the plain version and F.rms_norm,
-    and by device time per launch in one profile with F.rms_norm and the
-    empty kernel (the launch floor)."""
+    and by device time per launch of each layout in one profile with
+    F.rms_norm and the empty kernel (the launch floor)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.empty import empty_cuda
-    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.kernels.rmsnorm import DEFAULT_LAYOUT, layouts_for, rmsnorm_cuda, rmsnorm_plan
 
     x = torch.randn(REQUESTS, 1, d, generator=gen, device="cuda").to(torch.bfloat16)
     g = (torch.randn(d, generator=gen, device="cuda") * 0.2).to(torch.bfloat16)
@@ -547,22 +612,63 @@ def _rmsnorm_at(gen: torch.Generator, d: int) -> dict:
     w = (1.0 + g.float()).to(torch.bfloat16)  # F.rms_norm scales by weight, not 1 + weight
     b_ms, b_by = bound_ms(2 * x.numel() * 2 + g.numel() * 2, 5 * x.numel(), "float32")
     rms = {
-        "shape": list(x.shape), "dtype": "bfloat16",
+        "shape": list(x.shape), "dtype": "bfloat16", "layout": DEFAULT_LAYOUT,
         "max_abs_err": (y.float() - y_plain).abs().max().item(),
         "ms": time_ms(lambda: rmsnorm_cuda(x, g)),
         "plain_ms": time_ms(lambda: ref.rmsnorm_ref(x, g)),
         "library_ms": time_ms(lambda: F.rms_norm(x, (d,), weight=w, eps=1e-6)),
         "bound_ms": b_ms, "bound_by": b_by,
     }
-    same_run = _profile_calls({"rmsnorm": lambda xx: rmsnorm_cuda(xx, g),
-                               "empty": lambda xx: empty_cuda(xx.device),
-                               "library": lambda xx: F.rms_norm(xx, (d,), weight=w, eps=1e-6)},
-                              [x])
+    layouts = layouts_for(d, x.element_size())
+    # the layouts are one kernel template, told apart by its last argument
+    match = {f"rmsnorm_{lay}": (lambda key, warp=lay == "warp":
+                                "::rmsnorm_kernel<" in key and f"{str(warp).lower()}>" in key)
+             for lay in layouts}
+    same_run = _profile_calls(
+        {**{f"rmsnorm_{lay}": (lambda xx, lay=lay: rmsnorm_cuda(xx, g, layout=lay))
+            for lay in layouts},
+         "empty": lambda xx: empty_cuda(xx.device),
+         "library": lambda xx: F.rms_norm(xx, (d,), weight=w, eps=1e-6)}, [x], match=match)
     floor = same_run["empty"]
-    rms.update(device_ms=same_run["rmsnorm"], library_device_ms=same_run["library"],
+    mine = same_run[f"rmsnorm_{DEFAULT_LAYOUT}"]
+    rms.update(device_ms=mine, library_device_ms=same_run["library"],
                launch_floor_device_ms=floor,
-               reaches_half_of_max_bound_and_floor=same_run["rmsnorm"] <= 2 * max(b_ms, floor))
+               layouts={lay: {"device_ms": same_run[f"rmsnorm_{lay}"],
+                              "vectors_per_thread": rmsnorm_plan(d, 2, lay)} for lay in layouts},
+               reaches_half_of_max_bound_and_floor=mine <= 2 * max(b_ms, floor))
     return rms
+
+
+def _rmsnorm_checks(gen: torch.Generator) -> list:
+    """rmsnorm against its plain version at every width the port's norms
+    take (each config's d_model, MLA's latent ranks), in bf16 and float32,
+    in each layout that takes the width; two launches give the same bits."""
+    from repro_torch.configs import REGISTRY, get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import layouts_for, rmsnorm_cuda
+
+    widths = set()
+    for arch in REGISTRY:
+        cfg = get_config(arch)
+        widths.add(cfg.d_model)
+        if cfg.attn_kind == "mla":
+            widths.update(r for r in (cfg.mla_kv_rank, cfg.mla_q_rank) if r)
+    out = []
+    for d in sorted(widths):
+        for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+            x = torch.randn(REQUESTS, 1, d, generator=gen, device="cuda").to(dtype)
+            g = (torch.randn(d, generator=gen, device="cuda") * 0.2).to(dtype)
+            y_plain = ref.rmsnorm_ref(x.float(), g.float())
+            for layout in layouts_for(d, x.element_size()):
+                y = rmsnorm_cuda(x, g, layout=layout)
+                torch.testing.assert_close(y.float(), y_plain, **tol)
+                if not torch.equal(rmsnorm_cuda(x, g, layout=layout), y):
+                    raise AssertionError(f"rmsnorm D {d} {dtype} {layout}: bits differ "
+                                         "between two launches")
+                out.append({"D": d, "dtype": str(dtype).removeprefix("torch."), "layout": layout,
+                            "max_abs_err": (y.float() - y_plain).abs().max().item(),
+                            "worst_ratio": _worst_ratio(y, y_plain, tol)})
+    return out
 
 
 def _attention_path(gen: torch.Generator, H: int, KV: int, D: int, S: int) -> dict:
@@ -612,16 +718,16 @@ def _attention_path(gen: torch.Generator, H: int, KV: int, D: int, S: int) -> di
 
 
 def _family_heads(gen: torch.Generator) -> dict:
-    """decode_attention at the head layout of each GQA config of FAMILIES
-    (B 4, bf16), at the families phase's S (32 + 8) and at 544: checked
-    against the plain version, and its device time per launch beside SDPA's
-    (``enable_gqa``) in one profile, warm."""
+    """decode_attention at the head layout of each GQA config of FAMILIES and
+    of zamba2-2.7b's shared block (B 4, bf16), at the families phase's S
+    (32 + 8) and at 544: checked against the plain version, and its device
+    time per launch beside SDPA's (``enable_gqa``) in one profile, warm."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda
 
     out = {}
-    for arch in FAMILIES:
+    for arch in (*FAMILIES, "zamba2-2.7b"):
         cfg = get_config(arch)
         if cfg.attn_kind == "mla":
             out[arch] = None  # MLA attends in plain torch, not through the kernel
@@ -737,6 +843,8 @@ def phase_kernels() -> dict:
     olmoe = OLMOE_HEADS
     return {"phase": "kernels", "tolerance": BF16_TOL, "f32_tolerance": F32_TOL,
             "rmsnorm": _rmsnorm_at(gen, olmoe["d_model"]),
+            "rmsnorm_by_width": {d: _rmsnorm_at(gen, d) for d in RMSNORM_WIDTHS},
+            "rmsnorm_checks": _rmsnorm_checks(gen),
             "decode_attention": _attention_path(gen, olmoe["H"], olmoe["KV"], olmoe["D"],
                                                 PROMPT_LEN + NEW_TOKENS),
             "decode_attention_checks": checks, "decode_attention_controls": controls,
@@ -942,7 +1050,7 @@ def phase_serve(card: str, arch: str) -> tuple:
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
     from repro_torch.models import Model
-    from repro_torch.models.model import decode_launches
+    from repro_torch.models.model import decode_launches, init_caches
     from repro_torch.serving import ServeConfig, ServeEngine
 
     cfg = get_config(arch)  # full width, bf16
@@ -955,7 +1063,7 @@ def phase_serve(card: str, arch: str) -> tuple:
 
     # one decode step on its own: finite logits of the expected shape
     caches = model.init_caches(REQUESTS, 8)
-    logits, _ = model.decode_step(caches, torch.tensor([p[0] for p in prompts], device=dev), 0)
+    logits = model.decode_step(caches, torch.tensor([p[0] for p in prompts], device=dev), 0)[0]
     if logits.shape != (REQUESTS, cfg.vocab) or not torch.isfinite(logits).all():
         raise AssertionError(f"{arch}: bad first-step logits {tuple(logits.shape)}")
     del caches
@@ -965,6 +1073,7 @@ def phase_serve(card: str, arch: str) -> tuple:
     eng = ServeEngine(model, ServeConfig(max_batch=REQUESTS))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    allocated_at_start = torch.cuda.memory_allocated()
     rmsnorm_cuda.launches = decode_attention_cuda.launches = 0
     t0 = time.perf_counter()
     outs = eng.generate(prompts, NEW_TOKENS)
@@ -977,30 +1086,39 @@ def phase_serve(card: str, arch: str) -> tuple:
     if steps != PROMPT_LEN + NEW_TOKENS:
         raise AssertionError(f"{steps} decode steps, expected {PROMPT_LEN + NEW_TOKENS}")
     per_step = decode_launches(cfg)
+    if per_step != SERVE_LAUNCHES_PER_STEP[arch]:
+        raise AssertionError(f"{arch}: decode_launches gives {per_step}, the path has "
+                             f"{SERVE_LAUNCHES_PER_STEP[arch]}")
     expect = {k: n * steps for k, n in per_step.items()}
     if launches != expect:
         raise AssertionError(f"{arch}: kernel launches {launches} != {expect}")
     if not all(len(o) == PROMPT_LEN + NEW_TOKENS and all(0 <= t < cfg.vocab for t in o)
                for o in outs):
         raise AssertionError(f"{arch}: served outputs have the wrong length or token range")
+    # the caches of the run by kind, from their shapes alone
+    cache_bytes = {"kv": 0, "recurrent_state": 0}
+    for c in init_caches(cfg, REQUESTS, PROMPT_LEN + NEW_TOKENS, torch.device("meta")):
+        kind = "kv" if {"k", "c_kv"} & set(c) else "recurrent_state"
+        cache_bytes[kind] += sum(t.numel() * t.element_size() for t in c.values())
     return model, {
         "phase": "serve", "arch": cfg.name, "layers": cfg.n_layers, "params": model.n_params(),
+        "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+        "cache_bytes": cache_bytes,
         "dtype": "bfloat16", "requests": REQUESTS, "prompt_len": PROMPT_LEN,
         "new_tokens": NEW_TOKENS, "decode_steps": steps, "stats": eng.stats,
         "launches": launches, "launches_per_step": per_step, "expected_launches": expect,
         "wall_s": wall, "new_tokens_per_s": REQUESTS * NEW_TOKENS / wall,
         "ms_per_step": wall * 1e3 / steps, "init_s": init_s,
-        "peak_mem_bytes": torch.cuda.max_memory_allocated(), "card": card,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "allocated_at_start_bytes": allocated_at_start, "card": card,
     }
 
 
-def _grouped_gemm_keys(block, reps: int = 5, attempts: int = 3) -> set:
+def _grouped_gemm_keys(block, reps: int = 5, attempts: int = PROFILE_ATTEMPTS) -> set:
     """Names of the device kernels that ``torch._grouped_mm`` runs for a MoE
     block's two product shapes (gate / up, and down) at the decode batch,
     from a profile of those calls alone; made again, up to ``attempts``
     profiles, if the profiler dropped their activity records."""
-    from torch.profiler import ProfilerActivity, profile
-
     p, cfg = block.moe, block.cfg
     rows = REQUESTS * cfg.experts_per_token
     offs = torch.linspace(0, rows, cfg.n_experts + 1, device="cuda")[1:].to(torch.int32)
@@ -1013,12 +1131,11 @@ def _grouped_gemm_keys(block, reps: int = 5, attempts: int = 3) -> set:
             torch._grouped_mm(h, p["w_down"], offs=offs)
 
     calls()
-    for _ in range(attempts):
+    for attempt in range(attempts):
+        time.sleep(PROFILE_PAUSE_S * attempt)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            calls()
-            torch.cuda.synchronize()
-        found, _ = _device_ms_per_launch(prof, ())
+        averages, _ = _profiled(calls, calls)
+        found, _ = _device_ms_per_launch(averages, ())
         if found:
             return {key for key, _, _ in found}
     raise AssertionError(f"in {attempts} profiles the profiler saw no device kernel of "
@@ -1031,22 +1148,24 @@ def phase_profile(model, end: int = PROMPT_LEN + NEW_TOKENS, steps: int = 32) ->
     The same steps also run without the profiler just before and just after
     it.  The idle share reads the profiled device busy time against the run
     before; the run after shows how far the host-bound wall of the same
-    device work moves inside one call.  The caches hold zeros, which changes
+    device work moves inside one call.  The profiled run follows one warm-up
+    step whose events are dropped, and is made again (up to
+    PROFILE_ATTEMPTS runs) until the profile holds every launch of the
+    port's kernels that the steps made.  The caches hold zeros, which changes
     no kernel's work: attention reads min(pos + 1, S) slots whatever they
     hold.  The tokens are drawn from a seeded generator, a new one for every
     row and step, so a MoE model routes them as it would a real batch; for
     one, the grouped GEMMs' device time per step stands beside their byte
     bound, counted from the experts that each step's routing touches.
     """
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.models.model import MoEBlock
+    from repro_torch.models.model import MoEBlock, decode_launches
 
     cfg = model.cfg
     caches = model.init_caches(REQUESTS, end)
     toks = torch.randint(1, cfg.vocab, (steps + 1, REQUESTS),
                          generator=torch.Generator().manual_seed(5)).cuda()
-    model.decode_step(caches, toks[-1], end - steps - 1)
+    warm_step = lambda: model.decode_step(caches, toks[-1], end - steps - 1)  # noqa: E731
+    warm_step()
     moe_blocks = [b for b in model.blocks if isinstance(b, MoEBlock)]
     routes = []
 
@@ -1061,18 +1180,28 @@ def phase_profile(model, end: int = PROMPT_LEN + NEW_TOKENS, steps: int = 32) ->
         return (time.perf_counter() - t0) * 1e3
 
     plain_before = run_steps()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall_ms = run_steps()
+    expect = {k: n * steps for k, n in decode_launches(cfg).items() if n}
+    for attempt in range(PROFILE_ATTEMPTS):
+        time.sleep(PROFILE_PAUSE_S * attempt)
+        averages, wall_ms = _profiled(warm_step, run_steps)
+        rows, per_kernel = _device_ms_per_launch(averages, SERVE_KERNELS)
+        seen = {k: (per_kernel[k] or {}).get("launches") for k in expect}
+        if seen == expect:
+            break
+    else:
+        raise AssertionError(f"{cfg.name}: in {PROFILE_ATTEMPTS} profiles of {steps} steps the "
+                             f"profiler saw {seen} launches of the port's kernels, not {expect}")
     plain_after = run_steps()
 
-    rows, per_kernel = _device_ms_per_launch(prof, SERVE_KERNELS)
     busy_ms = sum(r[1] for r in rows) / 1e3
     out = {"phase": "profile", "arch": cfg.name, "layers": cfg.n_layers, "steps": steps,
+           "profile_sessions": attempt + 1,
            "positions": [end - steps, end - 1],
            "wall_ms_per_step_profiled": wall_ms / steps,
            "wall_ms_per_step_unprofiled": plain_before / steps,
            "wall_ms_per_step_after_profiler": plain_after / steps,
            "device_busy_ms_per_step": busy_ms / steps,
+           "device_launches_per_step": sum(r[2] for r in rows) / steps,
            "device_idle_share_profiled": 1 - busy_ms / wall_ms,
            "device_idle_share": 1 - busy_ms / plain_before,
            "kernels": per_kernel,
@@ -1127,7 +1256,7 @@ def phase_families(card: str) -> dict:
         prompts = np.random.default_rng(0).integers(1, cfg.vocab,
                                                     (REQUESTS, FAMILY_PROMPT)).tolist()
         caches = model.init_caches(REQUESTS, 8)
-        logits, _ = model.decode_step(caches, torch.tensor([p[0] for p in prompts], device=dev), 0)
+        logits = model.decode_step(caches, torch.tensor([p[0] for p in prompts], device=dev), 0)[0]
         if logits.shape != (REQUESTS, cfg.vocab) or not torch.isfinite(logits).all():
             raise AssertionError(f"{arch}: bad first-step logits {tuple(logits.shape)}")
         del caches
@@ -1166,8 +1295,8 @@ def phase_families(card: str) -> dict:
 
 
 def phase_parity() -> dict:
-    """Each attention family's reduced config in float32 on the card and on
-    the CPU, on the same weights: first-step logits within F32_LOGIT_TOL,
+    """Each family's reduced config in float32 on the card and on the CPU, on
+    the same weights: first-step logits within F32_LOGIT_TOL,
     the MoE routing indices of every step identical, and greedy tokens and
     engine stats identical."""
     from repro_torch.configs import get_config, reduced
@@ -1230,7 +1359,7 @@ def main() -> int:
     emit(allreduce)
     emit(phase_scans())
     serves, profiles = {}, {}
-    for arch in ("gemma3-1b", MAIN_ARCH):  # slice 1's path, then this slice's main path
+    for arch in SERVE_ARCHS:
         model, serves[arch] = phase_serve(card, arch)
         emit(serves[arch])
         profiles[arch] = phase_profile(model)

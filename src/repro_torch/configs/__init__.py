@@ -1,10 +1,10 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-Every architecture of the reference's registry, copied as data.  The port
-serves the attention families (dense, sliding, MLA, M-RoPE, MoE and the
-stub frontends); ``Model`` refuses zamba2-2.7b and xlstm-125m, whose Mamba2
-and xLSTM blocks are the next slice.  ``reduced()`` is a copy of the
-reference's family-preserving reduction for CPU tests.
+Every architecture of the reference's registry, copied as data, and the
+port serves each: the attention families (dense, sliding, MLA, M-RoPE, MoE
+and the stub frontends), zamba2-2.7b (Mamba2 with a shared attention block)
+and xlstm-125m (mLSTM / sLSTM).  ``reduced()`` is a copy of the reference's
+family-preserving reduction for CPU tests.
 """
 
 from __future__ import annotations

@@ -1,24 +1,39 @@
-// Fused RMSNorm for Hopper (sm_90a).
+// Fused RMSNorm for Hopper (sm_90a), one memory round trip a row.
 //
 // Replaces the TPU kernel src/repro/kernels/rmsnorm.py::rmsnorm_pallas
-// (body _kernel).  Per row of x[R, D]:
+// (pallas_call at :44, body _kernel).  Per row of x[R, D]:
 //     y = x * rsqrt(mean(x^2) + eps) * (1 + gamma)
 // computed in float32 and stored in x's dtype (float32 or bfloat16); gamma has
 // x's dtype.  The scale is (1 + gamma), as in src/repro/models/common.py.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32): the function reads x
-// and gamma once and writes y once.  On the gemma3-1b serve path x is
-// [4, 1, 1152] bf16: 4*1152*2 + 1152*2 + 4*1152*2 = 20,736 bytes, about 6 ns;
-// the ~5 flops an element are less still.  A call is bound by its launch (a
-// few microseconds), not by bytes or operations.
+// and gamma once and writes y once.  On the zamba2-2.7b decode path x is
+// [4, 1, 2560] bf16: 4*2560*2 + 2560*2 + 4*2560*2 = 46,080 bytes, 0.014 us;
+// the ~5 flops an element are less still.  So a call is bound by its launch:
+// the empty kernel (csrc/empty.cu) takes about 0.87 us of device time, and
+// all a norm can add to that is the latency of its dependent steps.
 //
-// Design: one CTA of 128 threads per row, no padding (the TPU kernel pads R to
-// a multiple of its row block; here the grid has exactly R blocks).  Each
-// thread reads 16-byte vectors (8 bf16 or 4 float32), sums x^2 in float32, and
-// the block reduces by warp shuffles and one shared-memory step.  The second
-// pass re-reads its own vectors (L1 hits) and writes y with 16-byte stores.
-// About the launch bound the kernel can do nothing alone: fusing the norm into
-// its neighbours or replaying the decode step as a CUDA graph is later work.
+// Design: the latency is a chain of steps, and the design makes it short.
+//  - One memory round trip.  Each thread issues every 16-byte load it needs,
+//    of x and of gamma, at its start, into registers: NV vectors of each, a
+//    compile-time 1, 2, 4 or 8 that the wrapper (kernels/rmsnorm.py) chooses
+//    from D.  Nothing is read twice; gamma (on the serve path a different
+//    layer's vector every launch, so cold) is in flight beside x instead of
+//    after the reduction.
+//  - One barrier at most.  Squares are summed in float32 in a fixed order
+//    (a thread's vectors in turn, then a butterfly of warp shuffles, which
+//    leaves every lane the same bits).  In the CTA layout each warp writes its
+//    partial to shared memory, one __syncthreads, and every thread sums the
+//    partials in the same order: no thread-0 pass, no second barrier.  In the
+//    warp layout a warp holds a whole row and there is no barrier at all.
+//  - The result is the same bits from run to run (no atomics, fixed orders).
+// Two layouts, chosen by the wrapper:
+//  - CTA a row: ceil(D / (8 NV)) threads (bf16; 4 NV float32) rounded up to
+//    a warp, at most kMaxThreads;
+//  - warp a row: kWarpRows rows a CTA, one warp each, where a row fits in
+//    32 x 8 vectors (bf16 D <= 2048, float32 D <= 1024).
+// About the launch itself the kernel can do nothing: fusing the norm into its
+// neighbours or replaying the decode step as a CUDA graph is later work.
 //
 // C interface (bound with ctypes): rmsnorm_launch returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue for arguments it does not take.
@@ -29,69 +44,145 @@ using namespace repro_torch;
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kMaxThreads = 256;  // CTA layout: threads a row at most
+constexpr int kWarpRows = 4;      // warp layout: rows (warps) a CTA
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void unpack(const uint4& u, float* out) {
+  const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+  for (int i = 0; i < kVec<T>; ++i) out[i] = to_f32(e[i]);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// NV vectors of a row for one thread: columns first, first + stride, ...
+// Columns past the row load zeros, whose squares add exactly nothing.
+template <typename T, int NV, bool kWarpPerRow>
+__global__ void __launch_bounds__(kMaxThreads)
 rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
-               T* __restrict__ y, int d, float eps) {
+               T* __restrict__ y, int rows, int d, float eps) {
   constexpr int N = kVec<T>;
   const int nvec = d / N;
-  const T* xr = x + static_cast<int64_t>(blockIdx.x) * d;
-  T* yr = y + static_cast<int64_t>(blockIdx.x) * d;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  int64_t row;
+  int first, stride;
+  if constexpr (kWarpPerRow) {
+    row = static_cast<int64_t>(blockIdx.x) * kWarpRows + warp;
+    if (row >= rows) return;  // a whole warp; no barrier follows
+    first = lane;
+    stride = 32;
+  } else {
+    row = blockIdx.x;
+    first = threadIdx.x;
+    stride = blockDim.x;
+  }
+  const T* xr = x + row * d;
+  T* yr = y + row * d;
+
+  uint4 xv[NV], gv[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {  // every load in flight before any use
+    const int c = first + i * stride;
+    if (c < nvec) {
+      xv[i] = *reinterpret_cast<const uint4*>(xr + c * N);
+      gv[i] = __ldg(reinterpret_cast<const uint4*>(gamma + c * N));
+    } else {
+      xv[i] = make_uint4(0u, 0u, 0u, 0u);
+      gv[i] = xv[i];
+    }
+  }
 
   float ss = 0.f;
-  for (int c = threadIdx.x; c < nvec; c += kThreads) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
     float v[N];
-    load_vec(xr + c * N, v);
+    unpack<T>(xv[i], v);
 #pragma unroll
-    for (int i = 0; i < N; ++i) ss += v[i] * v[i];
+    for (int e = 0; e < N; ++e) ss += v[e] * v[e];
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  ss = warp_sum(ss);
 
-  __shared__ float partial[kThreads / 32];
-  __shared__ float inv_rms;
-  if (threadIdx.x % 32 == 0) partial[threadIdx.x / 32] = ss;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = 0.f;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) total += partial[w];
-    inv_rms = rsqrtf(total / static_cast<float>(d) + eps);
+  float total;
+  if constexpr (kWarpPerRow) {
+    total = ss;
+  } else {
+    __shared__ float partial[kMaxThreads / 32];
+    if (lane == 0) partial[warp] = ss;
+    __syncthreads();
+    total = 0.f;
+    const int warps = blockDim.x / 32;
+    for (int w = 0; w < warps; ++w) total += partial[w];  // the same order everywhere
   }
-  __syncthreads();
+  const float r = rsqrtf(total / static_cast<float>(d) + eps);
 
-  const float r = inv_rms;
-  for (int c = threadIdx.x; c < nvec; c += kThreads) {
-    float v[N], g[N];
-    load_vec(xr + c * N, v);
-    load_vec(gamma + c * N, g);
 #pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = (v[i] * r) * (1.f + g[i]);
-    store_vec(yr + c * N, v);
+  for (int i = 0; i < NV; ++i) {
+    const int c = first + i * stride;
+    if (c < nvec) {
+      float v[N], g[N];
+      unpack<T>(xv[i], v);
+      unpack<T>(gv[i], g);
+#pragma unroll
+      for (int e = 0; e < N; ++e) v[e] = (v[e] * r) * (1.f + g[e]);
+      store_vec(yr + c * N, v);
+    }
+  }
+}
+
+template <typename T, int NV>
+cudaError_t launch_nv(const T* x, const T* gamma, T* y, int rows, int d, float eps,
+                      bool warp_per_row, cudaStream_t s) {
+  const int nvec = d / kVec<T>;
+  if (warp_per_row) {
+    if (nvec > 32 * NV) return cudaErrorInvalidValue;
+    const int blocks = (rows + kWarpRows - 1) / kWarpRows;
+    rmsnorm_kernel<T, NV, true><<<blocks, 32 * kWarpRows, 0, s>>>(x, gamma, y, rows, d, eps);
+  } else {
+    const int threads = ((nvec + NV - 1) / NV + 31) / 32 * 32;
+    if (threads > kMaxThreads) return cudaErrorInvalidValue;
+    rmsnorm_kernel<T, NV, false><<<rows, threads, 0, s>>>(x, gamma, y, rows, d, eps);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const void* gamma, void* y, int rows, int d, float eps,
+                   int nv, bool warp_per_row, cudaStream_t s) {
+  const T* xp = static_cast<const T*>(x);
+  const T* gp = static_cast<const T*>(gamma);
+  T* yp = static_cast<T*>(y);
+  switch (nv) {
+    case 1: return launch_nv<T, 1>(xp, gp, yp, rows, d, eps, warp_per_row, s);
+    case 2: return launch_nv<T, 2>(xp, gp, yp, rows, d, eps, warp_per_row, s);
+    case 4: return launch_nv<T, 4>(xp, gp, yp, rows, d, eps, warp_per_row, s);
+    case 8: return launch_nv<T, 8>(xp, gp, yp, rows, d, eps, warp_per_row, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
 // dtype: kFloat32 (0) or kBFloat16 (1).  d must be a multiple of the 16-byte
-// vector (4 float32, 8 bf16) and every pointer 16-byte aligned.
+// vector (4 float32, 8 bf16) and every pointer 16-byte aligned.  nv: vectors
+// of x a thread holds (1, 2, 4 or 8); warp_per_row: 1 for the warp layout, 0
+// for a CTA a row.  A row wider than the layout takes with nv is refused.
 extern "C" int rmsnorm_launch(const void* x, const void* gamma, void* y, int rows,
-                              int d, float eps, int dtype, void* stream) {
+                              int d, float eps, int dtype, int nv, int warp_per_row,
+                              void* stream) {
   const int vec = dtype == kFloat32 ? kVec<float> : kVec<__nv_bfloat16>;
   if (rows <= 0 || d <= 0 || d % vec != 0 || (dtype != kFloat32 && dtype != kBFloat16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) {
-    rmsnorm_kernel<float><<<rows, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(gamma),
-        static_cast<float*>(y), d, eps);
-  } else {
-    rmsnorm_kernel<__nv_bfloat16><<<rows, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(gamma),
-        static_cast<__nv_bfloat16*>(y), d, eps);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      dtype == kFloat32
+          ? launch<float>(x, gamma, y, rows, d, eps, nv, warp_per_row != 0, s)
+          : launch<__nv_bfloat16>(x, gamma, y, rows, d, eps, nv, warp_per_row != 0, s);
+  return static_cast<int>(err);
 }

@@ -1,9 +1,8 @@
 """Batched-serving command line of the port: token-by-token prefill + decode.
 
-Runs any ported architecture (``--arch``; zamba2-2.7b and xlstm-125m are
-refused until their blocks are ported) at full width on the CUDA device by
-default:
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+Runs any architecture of the registry (``--arch``) at full width on the
+CUDA device by default:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
       --requests 4 --prompt-len 480 --new-tokens 64
 ``--reduced`` takes the small CPU-test config and ``--device cpu`` the CPU
 (the kernels' plain versions).  Weights are random, from ``--seed``.

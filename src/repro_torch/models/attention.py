@@ -20,6 +20,7 @@ heads on one latent head, which the kernel does not take.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -45,6 +46,19 @@ _NEG_INF = -2.0e38
 # ---------------------------------------------------------------------------
 
 
+@functools.cache
+def _rope_freqs(half: int, theta: float, device: torch.device) -> torch.Tensor:
+    """``theta ** (-i / half)`` in float32, made once a device.
+
+    theta is raised to the float32 exponent in float64 on the CPU and rounded
+    once: the correctly rounded float32 values, which XLA gives.  torch's
+    float32 ``pow`` is one ulp off at a few indices (D 256, theta 1e4: 11, 33,
+    84, 102, 124), and positions multiply that error.
+    """
+    exponent = -torch.arange(0, half, dtype=torch.float32) / half
+    return (theta ** exponent.double()).float().to(device)
+
+
 def rope_cos_sin(
     positions: torch.Tensor,  # int[B, S], or int[3, B, S] for M-RoPE
     head_dim: int,
@@ -52,9 +66,7 @@ def rope_cos_sin(
     mrope_sections: Optional[Tuple[int, int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     half = head_dim // 2
-    freqs = theta ** (
-        -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    )
+    freqs = _rope_freqs(half, float(theta), positions.device)
     if positions.dim() == 2:
         ang = positions[..., None].to(torch.float32) * freqs  # [B, S, half]
     else:

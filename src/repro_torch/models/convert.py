@@ -4,7 +4,10 @@ The reference keeps a scan stage's parameters stacked on a leading ``layers``
 dim (``{"embed", "final_norm", "stages": [{"ln1": [L, d], "attn": {...},
 ...}, ...]}``, one stage per entry of ``build_plan``: kimi-k2's dense first
 layer, then its MoE layers with expert tensors ``[L, E, d, ff]`` and a
-float32 router); the port keeps one block per layer.  :func:`params_from_jax`
+float32 router).  A ``single`` stage (xLSTM's layers) holds one layer's
+unstacked dict; a ``shared`` stage (zamba2) holds ``{}``, and the shared
+block's parameters sit once under ``params["shared"]``.  The port keeps one
+block per layer, ``blocks.<i>``, and the shared block once, ``shared``.  :func:`params_from_jax`
 takes that tree with numpy leaves (bf16 leaves as ``ml_dtypes.bfloat16``
 arrays, as ``np.asarray`` gives them) and returns a ``state_dict`` for
 ``Model(cfg)``.  No JAX is imported: the caller converts to numpy.
@@ -32,19 +35,31 @@ def _to_torch(a: Any) -> torch.Tensor:
 
 def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """``state_dict`` of ``Model(cfg)`` from the reference's numpy parameter tree."""
-    specs = param_specs(cfg)  # raises for a plan that is not ported
+    specs = param_specs(cfg)
     plan = build_plan(cfg)
     if len(np_tree["stages"]) != len(plan):
-        raise ValueError(f"expected {len(plan)} scan stages, got {len(np_tree['stages'])}")
+        raise ValueError(f"expected {len(plan)} stages, got {len(np_tree['stages'])}")
     flat: Dict[str, Any] = {"embed": np_tree["embed"], "final_norm": np_tree["final_norm"]}
+
+    def put(prefix: str, tree: Dict[str, Any], pick) -> None:
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                flat.update({f"{prefix}.{name}.{k}": pick(v) for k, v in leaf.items()})
+            else:
+                flat[f"{prefix}.{name}"] = pick(leaf)
+
+    li = 0  # blocks with parameters of their own, in order
     for st, stage in zip(plan, np_tree["stages"]):
+        if st.kind == "shared":
+            if stage:
+                raise ValueError(f"a shared stage holds no parameters, got {sorted(stage)}")
+            continue
         for i in range(st.n):
-            li = st.layer_offset + i
-            for name, leaf in stage.items():
-                if isinstance(leaf, dict):
-                    flat.update({f"blocks.{li}.{name}.{k}": v[i] for k, v in leaf.items()})
-                else:
-                    flat[f"blocks.{li}.{name}"] = leaf[i]
+            put(f"blocks.{li}", stage, (lambda a, i=i: a[i]) if st.kind == "scan" else
+                (lambda a: a))
+            li += 1
+    if "shared" in np_tree:
+        put("shared", np_tree["shared"], lambda a: a)
     if "lm_head" in np_tree:
         flat["lm_head"] = np_tree["lm_head"]
 

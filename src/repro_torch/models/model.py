@@ -1,15 +1,19 @@
 """Model assembly: layer-stack plans, blocks, forward / prefill / decode
-(port of ``repro.models.model``, the attention families).
+(port of ``repro.models.model``).
 
 ``build_plan`` gives the reference's stages (``scan`` of homogeneous layers,
 ``single``, ``shared``).  The reference stacks a scan stage's parameters on a
-leading ``layers`` dim; the port keeps one block module per layer
-(:class:`DenseBlock` or :class:`MoEBlock`) in an ``nn.ModuleList``, and
-``models/convert.py`` unstacks the reference's tree.  ``forward``,
-``prefill`` and ``decode_step`` walk the layers in a Python loop, under
-``torch.no_grad()``: training is a later slice.  The Mamba2 (hybrid) and
-xLSTM (ssm) blocks are the next slice, and :class:`Model` refuses their
-plans.
+leading ``layers`` dim; the port keeps one block module per layer in an
+``nn.ModuleList`` (:class:`DenseBlock`, :class:`MoEBlock`,
+:class:`MambaBlock`, :class:`XLSTMBlock`), and ``models/convert.py`` unstacks
+the reference's tree.  zamba2's shared dense block is one module,
+``Model.shared``, kept once as the reference keeps ``params["shared"]`` and
+applied after each group of Mamba layers.  :func:`layer_blocks` walks the
+plan as the reference's ``_layer_blocks`` does, one entry per applied block
+(zamba2-2.7b: 63, of which 9 are the shared block); the entry index is what
+the caches and ``is_global_attn`` receive.  ``forward``, ``prefill`` and
+``decode_step`` walk the entries in a Python loop, under
+``torch.no_grad()``: training is a later slice.
 """
 
 from __future__ import annotations
@@ -26,9 +30,12 @@ from .attention import attention_apply, attention_decode, attention_specs, init_
 from .common import ModelConfig, ParamSpec, count_params, fill_, rms_norm
 from .mlp import mlp_apply, mlp_specs
 from .moe import moe_apply, moe_specs
+from .ssm import init_ssm_state, mamba_apply, mamba_decode, mamba_specs
+from .xlstm import (init_mlstm_state, init_slstm_state, mlstm_apply, mlstm_decode, mlstm_specs,
+                    slstm_apply, slstm_decode, slstm_specs)
 
-__all__ = ["Stage", "build_plan", "DenseBlock", "MoEBlock", "Model", "param_specs",
-           "decode_launches"]
+__all__ = ["Stage", "build_plan", "layer_blocks", "DenseBlock", "MoEBlock", "MambaBlock",
+           "XLSTMBlock", "Model", "param_specs", "init_caches", "decode_launches"]
 
 AUX_KEYS = ("moe_load_balance", "moe_z", "moe_dropped")
 
@@ -69,38 +76,58 @@ def build_plan(cfg: ModelConfig) -> List[Stage]:
     return [Stage("scan", "dense", L, 0)]
 
 
-def _layer_blocks(cfg: ModelConfig) -> List[str]:
-    """The block kind of each layer, from a plan of scan stages only."""
-    plan = build_plan(cfg)
-    if any(st.kind != "scan" or st.block not in _BLOCKS for st in plan):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} plan ({sorted({st.block for st in plan})}) "
-            "is not ported yet; its Mamba2 / xLSTM blocks are the next slice of the port"
-        )
-    return [st.block for st in plan for _ in range(st.n)]
+def layer_blocks(cfg: ModelConfig) -> List[Tuple[str, bool]]:
+    """``(block kind, shared?)`` of each applied block, in order: one entry a
+    layer of a ``scan`` or ``single`` stage and one each time the ``shared``
+    block is applied, as the reference's ``Model._layer_blocks``."""
+    return [(st.block, st.kind == "shared") for st in build_plan(cfg) for _ in range(st.n)]
 
 
 def _block_specs(cfg: ModelConfig, block: str) -> Dict[str, ParamSpec | Dict[str, ParamSpec]]:
     d, pd = cfg.d_model, cfg.param_dtype
-    ln = lambda: ParamSpec((d,), ("embed",), pd, init="zeros")  # noqa: E731
-    ffn = {"mlp": mlp_specs(cfg)} if block == "dense" else {"moe": moe_specs(cfg)}
-    return {"ln1": ln(), "attn": attention_specs(cfg), "ln2": ln(), **ffn}
+    ln = ParamSpec((d,), ("embed",), pd, init="zeros")
+    if block == "dense":
+        return {"ln1": ln, "attn": attention_specs(cfg), "ln2": ln, "mlp": mlp_specs(cfg)}
+    if block == "moe":
+        return {"ln1": ln, "attn": attention_specs(cfg), "ln2": ln, "moe": moe_specs(cfg)}
+    if block == "mamba":
+        return {"ln1": ln, "mamba": mamba_specs(cfg)}
+    if block == "xlstm_m":
+        return {"ln1": ln, "cell": mlstm_specs(cfg)}
+    if block == "xlstm_s":
+        return {"ln1": ln, "cell": slstm_specs(cfg)}
+    raise ValueError(f"unknown block {block!r}")
+
+
+def _prefixed(prefix: str, specs) -> Dict[str, ParamSpec]:
+    out = {}
+    for name, s in specs.items():
+        if isinstance(s, ParamSpec):
+            out[f"{prefix}.{name}"] = s
+        else:
+            out.update({f"{prefix}.{name}.{k}": v for k, v in s.items()})
+    return out
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    """``{state_dict name: ParamSpec}`` of :class:`Model`, in registration order."""
+    """``{state_dict name: ParamSpec}`` of :class:`Model`, in registration order.
+
+    A block of its own is ``blocks.<i>.*``, i counting those blocks in order
+    (the layer index); the shared block, however often it is applied, is
+    ``shared.*`` once.
+    """
     specs = {
         "embed": ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"),
                            cfg.param_dtype, init="embed", scale=0.02),
         "final_norm": ParamSpec((cfg.d_model,), ("embed",), cfg.param_dtype,
                                 init="zeros"),
     }
-    for li, block in enumerate(_layer_blocks(cfg)):
-        for name, s in _block_specs(cfg, block).items():
-            if isinstance(s, ParamSpec):
-                specs[f"blocks.{li}.{name}"] = s
-            else:
-                specs.update({f"blocks.{li}.{name}.{k}": v for k, v in s.items()})
+    entries = layer_blocks(cfg)
+    own = [block for block, shared in entries if not shared]
+    for i, block in enumerate(own):
+        specs.update(_prefixed(f"blocks.{i}", _block_specs(cfg, block)))
+    if any(shared for _, shared in entries):
+        specs.update(_prefixed("shared", _block_specs(cfg, "dense")))
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab), ("embed", "vocab"),
                                      cfg.param_dtype, scale=0.02)
@@ -108,16 +135,33 @@ def param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def decode_launches(cfg: ModelConfig) -> Dict[str, int]:
-    """Launches of each kernel in one ``decode_step`` on the card.
+    """Launches of each kernel in one ``decode_step`` on the card, counted
+    over the applied blocks (:func:`layer_blocks`).
 
-    ``rmsnorm``: two a block and the final norm, plus MLA's latent norm (and
-    its query norm where the query is compressed) in every block.
-    ``decode_attention``: one a GQA block; MLA attends in plain torch.
+    ``rmsnorm``: the final norm, two in an attention block (plus MLA's latent
+    norm, and its query norm where the query is compressed), one in a Mamba
+    or xLSTM block.  ``decode_attention``: one a GQA block; MLA attends in
+    plain torch.  zamba2-2.7b: 54 + 9 x 2 + 1 = 73 and 9; xlstm-125m: 13 and 0.
     """
-    L = cfg.n_layers
-    if cfg.attn_kind == "mla":
-        return {"rmsnorm": 2 * L + 1 + L * (2 if cfg.mla_q_rank else 1), "decode_attention": 0}
-    return {"rmsnorm": 2 * L + 1, "decode_attention": L}
+    mla = cfg.attn_kind == "mla"
+    rms, att = 1, 0
+    for block, _ in layer_blocks(cfg):
+        if block in ("dense", "moe"):
+            rms += 2 + (1 + bool(cfg.mla_q_rank) if mla else 0)
+            att += not mla
+        else:
+            rms += 1
+    return {"rmsnorm": rms, "decode_attention": att}
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device: torch.device) -> List:
+    """One cache an entry of :func:`layer_blocks`: a KV cache (or MLA latents)
+    in the param dtype for an attention block, the float32 recurrent state for
+    a Mamba or xLSTM block.  ``device="meta"`` gives the shapes alone."""
+    states = {"mamba": init_ssm_state, "xlstm_m": init_mlstm_state, "xlstm_s": init_slstm_state}
+    return [init_kv_cache(cfg, batch, max_len, li, device) if block in ("dense", "moe")
+            else states[block](cfg, batch, device)
+            for li, (block, _) in enumerate(layer_blocks(cfg))]
 
 
 def _param(spec: ParamSpec, device: torch.device) -> nn.Parameter:
@@ -129,28 +173,34 @@ def _zero_aux(device: torch.device) -> Dict[str, torch.Tensor]:
     return {k: torch.zeros((), dtype=torch.float32, device=device) for k in AUX_KEYS}
 
 
-class DenseBlock(nn.Module):
-    """Pre-norm attention + gated MLP, both residual."""
+class _Block(nn.Module):
+    """A pre-norm residual block; its parameters as ``_block_specs`` names them."""
 
-    kind = "dense"
+    kind = ""
 
-    def __init__(self, cfg: ModelConfig, device: torch.device, layer_idx: int):
+    def __init__(self, cfg: ModelConfig, device: torch.device, kind: str | None = None):
         super().__init__()
         self.cfg = cfg
-        self.layer_idx = layer_idx
+        self.kind = kind or type(self).kind
         for name, s in _block_specs(cfg, self.kind).items():
             setattr(self, name, _param(s, device) if isinstance(s, ParamSpec) else
                     nn.ParameterDict({k: _param(v, device) for k, v in s.items()}))
+
+
+class DenseBlock(_Block):
+    """Pre-norm attention + gated MLP, both residual."""
+
+    kind = "dense"
 
     def ffn(self, h: torch.Tensor, aux: bool = True):
         """``(y, aux losses)`` of the block's feed-forward half."""
         return mlp_apply(self.cfg, self.mlp, h), _zero_aux(h.device) if aux else None
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, layer_idx: int):
         """Full causal pass: ``(x, aux losses, cache entry)``."""
         cfg = self.cfg
         a, kv = attention_apply(cfg, self.attn, rms_norm(x, self.ln1, cfg.norm_eps), positions,
-                                is_global=cfg.is_global_attn(self.layer_idx))
+                                is_global=cfg.is_global_attn(layer_idx))
         x = x + a
         y, aux = self.ffn(rms_norm(x, self.ln2, cfg.norm_eps))
         return x + y, aux, kv
@@ -178,27 +228,74 @@ class MoEBlock(DenseBlock):
         return y, {**_zero_aux(h.device), **losses} if aux else None
 
 
-_BLOCKS = {"dense": DenseBlock, "moe": MoEBlock}
+class MambaBlock(_Block):
+    """Pre-norm Mamba2 mixer, residual; its cache is the SSM state."""
+
+    kind = "mamba"
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, layer_idx: int):
+        """Full causal pass: ``(x, aux losses, state after the last token)``."""
+        y, state = mamba_apply(self.cfg, self.mamba, rms_norm(x, self.ln1, self.cfg.norm_eps),
+                               return_state=True)
+        return x + y, _zero_aux(x.device), state
+
+    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int):
+        y, cache = mamba_decode(self.cfg, self.mamba, rms_norm(x, self.ln1, self.cfg.norm_eps),
+                                cache)
+        return x + y, cache
+
+
+_XLSTM = {"xlstm_m": (mlstm_apply, mlstm_decode), "xlstm_s": (slstm_apply, slstm_decode)}
+
+
+class XLSTMBlock(_Block):
+    """Pre-norm mLSTM (``xlstm_m``) or sLSTM (``xlstm_s``) cell, residual; its
+    cache is the cell's recurrent state."""
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, layer_idx: int):
+        """Full causal pass: ``(x, aux losses, state after the last token)``."""
+        apply = _XLSTM[self.kind][0]
+        y, state = apply(self.cfg, self.cell, rms_norm(x, self.ln1, self.cfg.norm_eps),
+                         return_state=True)
+        return x + y, _zero_aux(x.device), state
+
+    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int):
+        decode = _XLSTM[self.kind][1]
+        y, cache = decode(self.cfg, self.cell, rms_norm(x, self.ln1, self.cfg.norm_eps), cache)
+        return x + y, cache
+
+
+_BLOCKS = {"dense": DenseBlock, "moe": MoEBlock, "mamba": MambaBlock,
+           "xlstm_m": XLSTMBlock, "xlstm_s": XLSTMBlock}
 
 
 class Model(nn.Module):
-    """Decoder of the attention families; parameters live on ``device`` (the
-    card by default).
+    """Decoder of every family; parameters live on ``device`` (the card by
+    default).
 
     The constructor allocates zeroed parameters; :meth:`init` draws them from
     a seeded ``torch.Generator`` and ``load_state_dict`` loads given ones
     (``models.convert.params_from_jax`` carries the reference's across).
+    ``blocks`` holds the blocks with parameters of their own, ``shared`` the
+    shared block where the plan has one; ``entries`` lists the block applied
+    at each entry of :func:`layer_blocks`, the shared one as often as it is
+    applied.
     """
 
     def __init__(self, cfg: ModelConfig, device: str | torch.device | None = None):
         super().__init__()
         self.cfg = cfg.validate()
-        specs = param_specs(cfg)  # raises for a plan that is not ported
+        specs = param_specs(cfg)
         self.device = resolve_device(device)
         self.embed = _param(specs["embed"], self.device)
         self.final_norm = _param(specs["final_norm"], self.device)
-        self.blocks = nn.ModuleList(_BLOCKS[block](cfg, self.device, li)
-                                    for li, block in enumerate(_layer_blocks(cfg)))
+        plan = layer_blocks(cfg)
+        self.blocks = nn.ModuleList(_BLOCKS[block](cfg, self.device, block)
+                                    for block, shared in plan if not shared)
+        if any(shared for _, shared in plan):
+            self.shared = DenseBlock(cfg, self.device)
+        own = iter(self.blocks)
+        self.entries = [self.shared if shared else next(own) for _, shared in plan]
         if not cfg.tie_embeddings:
             self.lm_head = _param(specs["lm_head"], self.device)
 
@@ -248,13 +345,13 @@ class Model(nn.Module):
     # -- full forward -------------------------------------------------------------
 
     def _layers(self, x: torch.Tensor):
-        """Every block's full causal pass: ``(x, summed aux losses, cache entries)``."""
+        """Every entry's full causal pass: ``(x, summed aux losses, cache entries)``."""
         B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
         aux_total = _zero_aux(x.device)
         kvs = []
-        for block in self.blocks:
-            x, aux, kv = block(x, positions)
+        for li, block in enumerate(self.entries):
+            x, aux, kv = block(x, positions, li)
             aux_total = {k: aux_total[k] + aux[k] for k in AUX_KEYS}
             kvs.append(kv)
         return x, aux_total, kvs
@@ -270,8 +367,8 @@ class Model(nn.Module):
     # -- serving ----------------------------------------------------------------
 
     def init_caches(self, batch: int, max_len: int):
-        return [init_kv_cache(self.cfg, batch, max_len, li, self.device)
-                for li in range(self.cfg.n_layers)]
+        """Zeroed caches on the model's device (:func:`init_caches`)."""
+        return init_caches(self.cfg, batch, max_len, self.device)
 
     @torch.no_grad()
     def prefill(self, tokens: Optional[torch.Tensor] = None, *,
@@ -279,11 +376,13 @@ class Model(nn.Module):
         """Process a whole prompt: ``(last-token logits [B, V], caches)``.
 
         The caches are the reference's: ``S`` slots on global layers (and MLA
-        latents), a ring of ``min(window, S)`` slots on local ones.
+        latents), a ring of ``min(window, S)`` slots on local ones, and each
+        recurrent block's state after the last token.
         """
         x, _, kvs = self._layers(self._embed(tokens, embeds))
         S = x.shape[1]
-        caches = [self._prefill_cache(kv, li, S) for li, kv in enumerate(kvs)]
+        caches = [self._prefill_cache(kv, li, S) if isinstance(block, DenseBlock) else kv
+                  for li, (block, kv) in enumerate(zip(self.entries, kvs))]
         return self._head(x[:, -1:, :])[:, 0, :], caches
 
     def _prefill_cache(self, kv, layer_idx: int, S: int) -> Dict[str, torch.Tensor]:
@@ -311,11 +410,12 @@ class Model(nn.Module):
         """One token for every sequence in the batch.
 
         tokens: int[B] (or None with ``embeds [B, 1, d_model]``); pos: tokens
-        already in the cache.  The caches are written in place.  Returns
+        already in the cache.  The caches are written in place (a KV slot, a
+        recurrent state's entries).  Returns
         (logits [B, V] float32, caches).
         """
         tokens = None if tokens is None else torch.as_tensor(tokens, device=self.device)[:, None]
         x = self._embed(tokens, embeds)
-        for block, cache in zip(self.blocks, caches):
+        for block, cache in zip(self.entries, caches):
             x, _ = block.decode(x, cache, pos)
         return self._head(x)[:, 0, :], caches

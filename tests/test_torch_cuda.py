@@ -18,13 +18,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import REGISTRY, get_config, reduced
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (DecodeAttentionPlan, decode_attention_cuda,
                                                   decode_attention_plan)
 from repro_torch.kernels.gemv import GemvPlan, gemv_cuda, gemv_plan
 from repro_torch.kernels.gemv_tiles import gemv_tiles_cuda, remote_first_order, tile_plan
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+from repro_torch.kernels.rmsnorm import layouts_for, rmsnorm_cuda
 from repro_torch.models import Model, moe
 from repro_torch.models.model import decode_launches
 from repro_torch.serving import ServeConfig, ServeEngine
@@ -73,6 +73,10 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
     # every bound R on rep the kernel is built for: rep 2, 3 (R = 4), 8, 16
     (2, 4, 2, 32, 100, 77), (1, 6, 2, 64, 150, 150), (2, 8, 1, 64, 200, 130),
     (1, 16, 1, 128, 300, 299),
+    # zamba2-2.7b's shared attention, H = KV = 32 at D 80 (10 bf16 vectors):
+    # the serve path's S 544 and the families' S 40
+    (4, 32, 32, 80, 544, 1), (4, 32, 32, 80, 544, 300), (4, 32, 32, 80, 544, 544),
+    (4, 32, 32, 80, 40, 40),
 ])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_decode_attention_kernel_matches_plain(cuda, B, H, KV, D, S, length, dtype):
@@ -235,9 +239,10 @@ def test_serve_on_the_card_matches_the_cpu(cuda):
 
 ATTENTION_ARCHS = ["gemma3-1b", "gemma3-27b", "kimi-k2-1t-a32b", "kimi-k2-1t-mla", "minicpm3-4b",
                    "musicgen-large", "olmoe-1b-7b", "qwen2-vl-7b", "starcoder2-7b"]
+RECURRENT_ARCHS = ["zamba2-2.7b", "xlstm-125m"]
 
 
-@pytest.mark.parametrize("arch", ATTENTION_ARCHS)
+@pytest.mark.parametrize("arch", ATTENTION_ARCHS + RECURRENT_ARCHS)
 def test_decode_steps_of_each_family_on_the_card_match_the_cpu(cuda, arch):
     cfg = reduced(get_config(arch)).with_(param_dtype=torch.float32)
     gpu = Model(cfg).init(torch.Generator().manual_seed(1))
@@ -273,6 +278,21 @@ def test_moe_decode_step_waits_on_the_host_for_nothing(cuda, arch):
     assert torch.isfinite(logits).all()
 
 
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_serve_on_the_card_matches_the_cpu(cuda, arch):
+    cfg = reduced(get_config(arch)).with_(param_dtype=torch.float32)
+    gpu = Model(cfg).init(torch.Generator().manual_seed(1))
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    prompts = [[5, 6, 7], [9, 10], [1, 2, 3, 4],
+               np.random.default_rng(1).integers(1, cfg.vocab, 21).tolist()]
+    outs = {}
+    for name, model in (("gpu", gpu), ("cpu", cpu)):
+        eng = ServeEngine(model, ServeConfig(max_batch=2))
+        outs[name] = (eng.generate(prompts, 12), eng.stats)
+    assert outs["gpu"] == outs["cpu"]
+
+
 @pytest.mark.parametrize("rows,E,d,ff", [(32, 64, 2048, 1024), (18, 8, 64, 128)])
 def test_grouped_ffn_on_the_card_matches_its_plain_version(cuda, rows, E, d, ff):
     cfg = get_config("olmoe-1b-7b").with_(n_experts=E, d_model=d, d_ff=ff)
@@ -295,6 +315,46 @@ def test_rmsnorm_kernel_at_the_mla_and_olmoe_widths(cuda, D):
     g = _randn((D,), torch.bfloat16, cuda, 6) * 0.2
     torch.testing.assert_close(rmsnorm_cuda(x, g).float(), ref.rmsnorm_ref(x.float(), g.float()),
                                **TOL["bfloat16"])
+
+
+def _norm_widths():
+    """Every width the port's norms take: each config's d_model and MLA's
+    latent ranks (kv and q)."""
+    widths = set()
+    for arch in REGISTRY:
+        cfg = get_config(arch)
+        widths.add(cfg.d_model)
+        if cfg.attn_kind == "mla":
+            widths.update(r for r in (cfg.mla_kv_rank, cfg.mla_q_rank) if r)
+    return sorted(widths)
+
+
+NORM_WIDTHS = _norm_widths()
+
+
+@pytest.mark.parametrize("D,dtype,layout", [
+    (D, dtype, layout) for D in NORM_WIDTHS for dtype in sorted(DTYPES)
+    for layout in layouts_for(D, DTYPES[dtype].itemsize)])
+@pytest.mark.parametrize("rows", [1, 4, 9])
+def test_rmsnorm_kernel_at_every_width_of_the_port(cuda, D, dtype, layout, rows):
+    dt = DTYPES[dtype]
+    x = _randn((rows, 1, D), dt, cuda, 7)
+    g = _randn((D,), dt, cuda, 8) * 0.2
+    before = rmsnorm_cuda.launches
+    y = rmsnorm_cuda(x, g, layout=layout)
+    torch.cuda.synchronize()
+    assert rmsnorm_cuda.launches == before + 1
+    assert y.dtype == dt and y.shape == x.shape
+    torch.testing.assert_close(y.float(), ref.rmsnorm_ref(x.float(), g.float()), **TOL[dtype])
+    assert torch.equal(rmsnorm_cuda(x, g, layout=layout), y)  # fixed sum orders: the same bits
+
+
+def test_rmsnorm_kernel_refuses_rows_wider_than_its_layout(cuda):
+    with pytest.raises(ValueError, match="at most 2048"):
+        rmsnorm_cuda(torch.zeros(2, 2560, device=cuda, dtype=torch.bfloat16),
+                     torch.zeros(2560, device=cuda, dtype=torch.bfloat16), layout="warp")
+    with pytest.raises(ValueError, match="at most 8192"):
+        rmsnorm_cuda(torch.zeros(2, 8196, device=cuda), torch.zeros(8196, device=cuda))
 
 
 def _gemv_operands(M, K, N, dtype, layout, device, seed):

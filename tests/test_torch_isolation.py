@@ -36,8 +36,10 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env, check=True,
                          capture_output=True, text=True, timeout=120).stdout.split()
     assert out == [str(expected), "[]"]
-    assert expected >= 39  # every module of the slices so far was walked, moe.py and
-    # the ten configs of the attention-family slice among them
+    assert expected >= 41  # every module of the slices so far was walked: moe.py and
+    # the ten configs of the attention-family slice, ssm.py and xlstm.py among them
+    assert {"repro_torch.models.ssm", "repro_torch.models.xlstm"} <= {
+        m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

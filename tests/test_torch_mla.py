@@ -72,9 +72,10 @@ def test_mrope_with_identical_streams_is_rope():
 
 
 def test_mrope_with_three_streams_matches_reference():
-    # positions within the serve path's 544; XLA's and torch's float32 cos
-    # differ by more ulps at angles of thousands of radians
-    pos = np.random.default_rng(1).integers(0, 600, (3, 2, 5)).astype(np.int32)
+    # positions up to qwen2-vl's 32768-token context and beyond: the float32
+    # frequencies are the correctly rounded ones on both sides, and float32
+    # cos / sin agree to a few ulps of the angle there
+    pos = np.random.default_rng(1).integers(0, 131072, (3, 2, 5)).astype(np.int32)
     jc, js = jatt.rope_cos_sin(jnp.asarray(pos), 128, 1e6, (16, 24, 24))
     c, s = attention.rope_cos_sin(torch.from_numpy(pos), 128, 1e6, (16, 24, 24))
     np.testing.assert_allclose(c.numpy(), np.asarray(jc), atol=3e-5)
