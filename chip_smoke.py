@@ -23,11 +23,10 @@ Phases, each printing one JSON line:
            tolerance must reject; rmsnorm and decode_attention at the main
            path's shapes (olmoe-1b-7b: x [4, 1, 2048]; q [4, 16, 128] against
            k/v [4, 544, 16, 128]) beside their plain versions and library
-           calls; rmsnorm's two layouts (a CTA a row, a warp a row where it
-           fits) in one profile with F.rms_norm and the empty kernel (the
-           launch floor) at D 2048, 1152, 768 and 2560, and rmsnorm against
-           its plain version at every width the port's norms take, bf16 and
-           float32, each layout; decode_attention at the head layout of each
+           calls; rmsnorm in one profile with F.rms_norm and the empty
+           kernel (the launch floor) at D 2048, 1152, 768 and 2560, and
+           rmsnorm against its plain version at every width the port's norms
+           take, bf16 and float32; decode_attention at the head layout of each
            GQA config of the families phase and of zamba2-2.7b's shared block
            (32, 32, 80) beside SDPA (S 40 and 544);
   gemv_allreduce  the fused GEMV+AllReduce and the unfused psum_matmul on 4
@@ -288,12 +287,11 @@ def _gemv_controls(a: torch.Tensor, x: torch.Tensor, y_plain: torch.Tensor) -> d
 
 
 def _profile_calls(calls: dict, operands: list, reps: int = 20,
-                   attempts: int = PROFILE_ATTEMPTS, match: dict | None = None) -> dict:
+                   attempts: int = PROFILE_ATTEMPTS) -> dict:
     """Device ms per call of each labelled call, from one torch.profiler run.
 
     ``calls`` maps a label to a function of one operand: a kernel of the port
-    (its label is the kernel's name, or ``match`` maps it to a predicate on
-    the profiler's kernel name) or ``"library"``, the PyTorch call it is held
+    (its label is the kernel's name) or ``"library"``, the PyTorch call it is held
     against.  The calls take turns, each on the next of ``operands``, so
     with copies enough that the L2 cannot hold them every call finds its
     operand cold.  Device rows of the port's kernels are matched by name,
@@ -304,7 +302,6 @@ def _profile_calls(calls: dict, operands: list, reps: int = 20,
     all.
     """
     ours = [k for k in calls if k != "library"]
-    matches = {k: (match or {}).get(k, lambda key, k=k: f"::{k}_kernel<" in key) for k in ours}
 
     def warmup():
         for fn in calls.values():
@@ -329,7 +326,7 @@ def _profile_calls(calls: dict, operands: list, reps: int = 20,
         seen = {}
         total_us = {}
         for key, us, n in rows:
-            mine = next((k for k in ours if matches[k](key)), None)
+            mine = next((k for k in ours if f"::{k}_kernel<" in key), None)
             if mine is not None:  # a kernel may show under more than one key
                 seen[mine] = seen.get(mine, 0) + n
                 total_us[mine] = total_us.get(mine, 0.0) + us
@@ -598,11 +595,11 @@ def _attention_sweep(gen: torch.Generator, sms: int) -> dict:
 def _rmsnorm_at(gen: torch.Generator, d: int) -> dict:
     """rmsnorm at a serve path's shape, x [B, 1, d] bf16: checked against the
     plain version, timed by events beside the plain version and F.rms_norm,
-    and by device time per launch of each layout in one profile with
-    F.rms_norm and the empty kernel (the launch floor)."""
+    and by device time per launch in one profile with F.rms_norm and the
+    empty kernel (the launch floor)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.empty import empty_cuda
-    from repro_torch.kernels.rmsnorm import DEFAULT_LAYOUT, layouts_for, rmsnorm_cuda, rmsnorm_plan
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plan
 
     x = torch.randn(REQUESTS, 1, d, generator=gen, device="cuda").to(torch.bfloat16)
     g = (torch.randn(d, generator=gen, device="cuda") * 0.2).to(torch.bfloat16)
@@ -612,40 +609,33 @@ def _rmsnorm_at(gen: torch.Generator, d: int) -> dict:
     w = (1.0 + g.float()).to(torch.bfloat16)  # F.rms_norm scales by weight, not 1 + weight
     b_ms, b_by = bound_ms(2 * x.numel() * 2 + g.numel() * 2, 5 * x.numel(), "float32")
     rms = {
-        "shape": list(x.shape), "dtype": "bfloat16", "layout": DEFAULT_LAYOUT,
+        "shape": list(x.shape), "dtype": "bfloat16",
+        "vectors_per_thread": rmsnorm_plan(d, x.element_size()),
         "max_abs_err": (y.float() - y_plain).abs().max().item(),
         "ms": time_ms(lambda: rmsnorm_cuda(x, g)),
         "plain_ms": time_ms(lambda: ref.rmsnorm_ref(x, g)),
         "library_ms": time_ms(lambda: F.rms_norm(x, (d,), weight=w, eps=1e-6)),
         "bound_ms": b_ms, "bound_by": b_by,
     }
-    layouts = layouts_for(d, x.element_size())
-    # the layouts are one kernel template, told apart by its last argument
-    match = {f"rmsnorm_{lay}": (lambda key, warp=lay == "warp":
-                                "::rmsnorm_kernel<" in key and f"{str(warp).lower()}>" in key)
-             for lay in layouts}
     same_run = _profile_calls(
-        {**{f"rmsnorm_{lay}": (lambda xx, lay=lay: rmsnorm_cuda(xx, g, layout=lay))
-            for lay in layouts},
+        {"rmsnorm": lambda xx: rmsnorm_cuda(xx, g),
          "empty": lambda xx: empty_cuda(xx.device),
-         "library": lambda xx: F.rms_norm(xx, (d,), weight=w, eps=1e-6)}, [x], match=match)
+         "library": lambda xx: F.rms_norm(xx, (d,), weight=w, eps=1e-6)}, [x])
     floor = same_run["empty"]
-    mine = same_run[f"rmsnorm_{DEFAULT_LAYOUT}"]
+    mine = same_run["rmsnorm"]
     rms.update(device_ms=mine, library_device_ms=same_run["library"],
                launch_floor_device_ms=floor,
-               layouts={lay: {"device_ms": same_run[f"rmsnorm_{lay}"],
-                              "vectors_per_thread": rmsnorm_plan(d, 2, lay)} for lay in layouts},
                reaches_half_of_max_bound_and_floor=mine <= 2 * max(b_ms, floor))
     return rms
 
 
 def _rmsnorm_checks(gen: torch.Generator) -> list:
     """rmsnorm against its plain version at every width the port's norms
-    take (each config's d_model, MLA's latent ranks), in bf16 and float32,
-    in each layout that takes the width; two launches give the same bits."""
+    take (each config's d_model, MLA's latent ranks), in bf16 and float32;
+    two launches give the same bits."""
     from repro_torch.configs import REGISTRY, get_config
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rmsnorm import layouts_for, rmsnorm_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 
     widths = set()
     for arch in REGISTRY:
@@ -659,15 +649,13 @@ def _rmsnorm_checks(gen: torch.Generator) -> list:
             x = torch.randn(REQUESTS, 1, d, generator=gen, device="cuda").to(dtype)
             g = (torch.randn(d, generator=gen, device="cuda") * 0.2).to(dtype)
             y_plain = ref.rmsnorm_ref(x.float(), g.float())
-            for layout in layouts_for(d, x.element_size()):
-                y = rmsnorm_cuda(x, g, layout=layout)
-                torch.testing.assert_close(y.float(), y_plain, **tol)
-                if not torch.equal(rmsnorm_cuda(x, g, layout=layout), y):
-                    raise AssertionError(f"rmsnorm D {d} {dtype} {layout}: bits differ "
-                                         "between two launches")
-                out.append({"D": d, "dtype": str(dtype).removeprefix("torch."), "layout": layout,
-                            "max_abs_err": (y.float() - y_plain).abs().max().item(),
-                            "worst_ratio": _worst_ratio(y, y_plain, tol)})
+            y = rmsnorm_cuda(x, g)
+            torch.testing.assert_close(y.float(), y_plain, **tol)
+            if not torch.equal(rmsnorm_cuda(x, g), y):
+                raise AssertionError(f"rmsnorm D {d} {dtype}: bits differ between two launches")
+            out.append({"D": d, "dtype": str(dtype).removeprefix("torch."),
+                        "max_abs_err": (y.float() - y_plain).abs().max().item(),
+                        "worst_ratio": _worst_ratio(y, y_plain, tol)})
     return out
 
 

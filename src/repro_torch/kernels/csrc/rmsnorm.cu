@@ -20,18 +20,15 @@
 //    from D.  Nothing is read twice; gamma (on the serve path a different
 //    layer's vector every launch, so cold) is in flight beside x instead of
 //    after the reduction.
-//  - One barrier at most.  Squares are summed in float32 in a fixed order
-//    (a thread's vectors in turn, then a butterfly of warp shuffles, which
-//    leaves every lane the same bits).  In the CTA layout each warp writes its
-//    partial to shared memory, one __syncthreads, and every thread sums the
-//    partials in the same order: no thread-0 pass, no second barrier.  In the
-//    warp layout a warp holds a whole row and there is no barrier at all.
+//  - One barrier.  Squares are summed in float32 in a fixed order (a
+//    thread's vectors in turn, then a butterfly of warp shuffles, which
+//    leaves every lane the same bits).  Each warp writes its partial to
+//    shared memory, one __syncthreads, and every thread sums the partials in
+//    the same order: no thread-0 pass, no second barrier.
 //  - The result is the same bits from run to run (no atomics, fixed orders).
-// Two layouts, chosen by the wrapper:
-//  - CTA a row: ceil(D / (8 NV)) threads (bf16; 4 NV float32) rounded up to
-//    a warp, at most kMaxThreads;
-//  - warp a row: kWarpRows rows a CTA, one warp each, where a row fits in
-//    32 x 8 vectors (bf16 D <= 2048, float32 D <= 1024).
+// A CTA a row: ceil(D / (8 NV)) threads (bf16; 4 NV float32) rounded up to a
+// warp, at most kMaxThreads.  A warp a row (no barrier, where a row fits in
+// 32 x 8 vectors) was measured slower at every width it takes (PERF.md).
 // About the launch itself the kernel can do nothing: fusing the norm into its
 // neighbours or replaying the decode step as a CUDA graph is later work.
 //
@@ -44,8 +41,7 @@ using namespace repro_torch;
 
 namespace {
 
-constexpr int kMaxThreads = 256;  // CTA layout: threads a row at most
-constexpr int kWarpRows = 4;      // warp layout: rows (warps) a CTA
+constexpr int kMaxThreads = 256;  // threads a row at most
 
 template <typename T>
 __device__ __forceinline__ void unpack(const uint4& u, float* out) {
@@ -62,26 +58,17 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // NV vectors of a row for one thread: columns first, first + stride, ...
 // Columns past the row load zeros, whose squares add exactly nothing.
-template <typename T, int NV, bool kWarpPerRow>
+template <typename T, int NV>
 __global__ void __launch_bounds__(kMaxThreads)
 rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
-               T* __restrict__ y, int rows, int d, float eps) {
+               T* __restrict__ y, int d, float eps) {
   constexpr int N = kVec<T>;
   const int nvec = d / N;
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
-  int64_t row;
-  int first, stride;
-  if constexpr (kWarpPerRow) {
-    row = static_cast<int64_t>(blockIdx.x) * kWarpRows + warp;
-    if (row >= rows) return;  // a whole warp; no barrier follows
-    first = lane;
-    stride = 32;
-  } else {
-    row = blockIdx.x;
-    first = threadIdx.x;
-    stride = blockDim.x;
-  }
+  const int64_t row = blockIdx.x;
+  const int first = threadIdx.x;
+  const int stride = blockDim.x;
   const T* xr = x + row * d;
   T* yr = y + row * d;
 
@@ -108,17 +95,12 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
   }
   ss = warp_sum(ss);
 
-  float total;
-  if constexpr (kWarpPerRow) {
-    total = ss;
-  } else {
-    __shared__ float partial[kMaxThreads / 32];
-    if (lane == 0) partial[warp] = ss;
-    __syncthreads();
-    total = 0.f;
-    const int warps = blockDim.x / 32;
-    for (int w = 0; w < warps; ++w) total += partial[w];  // the same order everywhere
-  }
+  __shared__ float partial[kMaxThreads / 32];
+  if (lane == 0) partial[warp] = ss;
+  __syncthreads();
+  float total = 0.f;
+  const int warps = blockDim.x / 32;
+  for (int w = 0; w < warps; ++w) total += partial[w];  // the same order everywhere
   const float r = rsqrtf(total / static_cast<float>(d) + eps);
 
 #pragma unroll
@@ -137,31 +119,25 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
 
 template <typename T, int NV>
 cudaError_t launch_nv(const T* x, const T* gamma, T* y, int rows, int d, float eps,
-                      bool warp_per_row, cudaStream_t s) {
+                      cudaStream_t s) {
   const int nvec = d / kVec<T>;
-  if (warp_per_row) {
-    if (nvec > 32 * NV) return cudaErrorInvalidValue;
-    const int blocks = (rows + kWarpRows - 1) / kWarpRows;
-    rmsnorm_kernel<T, NV, true><<<blocks, 32 * kWarpRows, 0, s>>>(x, gamma, y, rows, d, eps);
-  } else {
-    const int threads = ((nvec + NV - 1) / NV + 31) / 32 * 32;
-    if (threads > kMaxThreads) return cudaErrorInvalidValue;
-    rmsnorm_kernel<T, NV, false><<<rows, threads, 0, s>>>(x, gamma, y, rows, d, eps);
-  }
+  const int threads = ((nvec + NV - 1) / NV + 31) / 32 * 32;
+  if (threads > kMaxThreads) return cudaErrorInvalidValue;
+  rmsnorm_kernel<T, NV><<<rows, threads, 0, s>>>(x, gamma, y, d, eps);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const void* gamma, void* y, int rows, int d, float eps,
-                   int nv, bool warp_per_row, cudaStream_t s) {
+                   int nv, cudaStream_t s) {
   const T* xp = static_cast<const T*>(x);
   const T* gp = static_cast<const T*>(gamma);
   T* yp = static_cast<T*>(y);
   switch (nv) {
-    case 1: return launch_nv<T, 1>(xp, gp, yp, rows, d, eps, warp_per_row, s);
-    case 2: return launch_nv<T, 2>(xp, gp, yp, rows, d, eps, warp_per_row, s);
-    case 4: return launch_nv<T, 4>(xp, gp, yp, rows, d, eps, warp_per_row, s);
-    case 8: return launch_nv<T, 8>(xp, gp, yp, rows, d, eps, warp_per_row, s);
+    case 1: return launch_nv<T, 1>(xp, gp, yp, rows, d, eps, s);
+    case 2: return launch_nv<T, 2>(xp, gp, yp, rows, d, eps, s);
+    case 4: return launch_nv<T, 4>(xp, gp, yp, rows, d, eps, s);
+    case 8: return launch_nv<T, 8>(xp, gp, yp, rows, d, eps, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -170,11 +146,10 @@ cudaError_t launch(const void* x, const void* gamma, void* y, int rows, int d, f
 
 // dtype: kFloat32 (0) or kBFloat16 (1).  d must be a multiple of the 16-byte
 // vector (4 float32, 8 bf16) and every pointer 16-byte aligned.  nv: vectors
-// of x a thread holds (1, 2, 4 or 8); warp_per_row: 1 for the warp layout, 0
-// for a CTA a row.  A row wider than the layout takes with nv is refused.
+// of x a thread holds (1, 2, 4 or 8).  A row wider than kMaxThreads threads
+// take with nv is refused.
 extern "C" int rmsnorm_launch(const void* x, const void* gamma, void* y, int rows,
-                              int d, float eps, int dtype, int nv, int warp_per_row,
-                              void* stream) {
+                              int d, float eps, int dtype, int nv, void* stream) {
   const int vec = dtype == kFloat32 ? kVec<float> : kVec<__nv_bfloat16>;
   if (rows <= 0 || d <= 0 || d % vec != 0 || (dtype != kFloat32 && dtype != kBFloat16)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -182,7 +157,7 @@ extern "C" int rmsnorm_launch(const void* x, const void* gamma, void* y, int row
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       dtype == kFloat32
-          ? launch<float>(x, gamma, y, rows, d, eps, nv, warp_per_row != 0, s)
-          : launch<__nv_bfloat16>(x, gamma, y, rows, d, eps, nv, warp_per_row != 0, s);
+          ? launch<float>(x, gamma, y, rows, d, eps, nv, s)
+          : launch<__nv_bfloat16>(x, gamma, y, rows, d, eps, nv, s);
   return static_cast<int>(err);
 }

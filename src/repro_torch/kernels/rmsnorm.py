@@ -1,12 +1,11 @@
 """Fused RMSNorm: the CUDA kernel's wrapper and its plain PyTorch version.
 
-Port of ``repro/kernels/rmsnorm.py``.  The kernel (``csrc/rmsnorm.cu``) makes
-one memory round trip a row: each thread loads its ``nv`` 16-byte vectors of x
-and of gamma at once, into registers.  It has two layouts: a CTA a row (one
-barrier), or a warp a row (none) where the row fits in 32 x 8 vectors.
-:func:`rmsnorm_plan` chooses ``nv`` from the width; :func:`rmsnorm_ref` is the
-same function in plain PyTorch, used on the CPU and held against the kernel
-on the card.
+Port of ``repro/kernels/rmsnorm.py``.  The kernel (``csrc/rmsnorm.cu``) runs
+a CTA a row and makes one memory round trip: each thread loads its ``nv``
+16-byte vectors of x and of gamma at once, into registers, and the row's sums
+meet at one barrier.  :func:`rmsnorm_plan` chooses ``nv`` from the width;
+:func:`rmsnorm_ref` is the same function in plain PyTorch, used on the CPU and
+held against the kernel on the card.
 """
 
 from __future__ import annotations
@@ -18,12 +17,9 @@ import torch
 
 from . import build
 
-__all__ = ["rmsnorm_cuda", "rmsnorm_ref", "rmsnorm_plan", "layouts_for", "LAYOUTS",
-           "DEFAULT_LAYOUT"]
+__all__ = ["rmsnorm_cuda", "rmsnorm_ref", "rmsnorm_plan"]
 
-LAYOUTS = ("cta", "warp")
-DEFAULT_LAYOUT = "cta"
-MAX_THREADS = 256      # threads a row in the CTA layout (kMaxThreads in csrc/rmsnorm.cu)
+MAX_THREADS = 256      # threads a row (kMaxThreads in csrc/rmsnorm.cu)
 VECTORS = (1, 2, 4, 8)  # 16-byte vectors of x a thread may hold
 
 
@@ -35,46 +31,33 @@ def rmsnorm_ref(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torc
     return (y * (1.0 + gamma.float())).to(x.dtype)
 
 
-def rmsnorm_plan(d: int, element_size: int, layout: str = DEFAULT_LAYOUT) -> int:
+def rmsnorm_plan(d: int, element_size: int) -> int:
     """Vectors of x a thread holds for rows of ``d`` elements: the fewest of
-    1, 2, 4, 8 with which the layout's threads (up to 256 a CTA, or 32 a
-    warp) cover the row.  Raises for a row wider than the layout takes:
-    bf16 D 16384 (CTA) or 2048 (warp), float32 half of that."""
-    if layout not in LAYOUTS:
-        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    1, 2, 4, 8 with which up to 256 threads cover the row.  Raises for a row
+    wider than that: bf16 D 16384, float32 D 8192."""
     nvec = d * element_size // 16
-    lanes = MAX_THREADS if layout == "cta" else 32
     for nv in VECTORS:
-        if nvec <= nv * lanes:
+        if nvec <= nv * MAX_THREADS:
             return nv
-    widest = lanes * VECTORS[-1] * 16 // element_size
+    widest = MAX_THREADS * VECTORS[-1] * 16 // element_size
     raise ValueError(f"rmsnorm_cuda takes rows of at most {widest} elements of "
-                     f"{element_size} bytes in the {layout!r} layout, got D = {d}")
-
-
-def layouts_for(d: int, element_size: int) -> list:
-    """The layouts that take rows of ``d`` elements of ``element_size`` bytes."""
-    nvec = d * element_size // 16
-    return [layout for layout in LAYOUTS
-            if nvec <= VECTORS[-1] * (MAX_THREADS if layout == "cta" else 32)]
+                     f"{element_size} bytes, got D = {d}")
 
 
 @functools.cache
 def _launch_fn():
     fn = build.load("rmsnorm").rmsnorm_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def rmsnorm_cuda(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6, *,
-                 layout: str = DEFAULT_LAYOUT) -> torch.Tensor:
+def rmsnorm_cuda(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Launch the kernel on ``x[..., D]`` (a CUDA tensor) and return y.
 
     Takes float32 or bfloat16, gamma of x's dtype and shape ``[D]``, both
-    contiguous, D a multiple of 16 bytes and no wider than the layout takes
+    contiguous, D a multiple of 16 bytes and no wider than the kernel takes
     (:func:`rmsnorm_plan`).  Raises on anything else, and on a launch the
     runtime refuses.  Each launch adds one to ``rmsnorm_cuda.launches``.
     """
@@ -93,13 +76,12 @@ def rmsnorm_cuda(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6, *,
         raise ValueError("rmsnorm_cuda needs contiguous x and gamma")
     if x.data_ptr() % 16 or gamma.data_ptr() % 16:
         raise ValueError("rmsnorm_cuda needs 16-byte aligned x and gamma")
-    nv = rmsnorm_plan(D, x.element_size(), layout)
+    nv = rmsnorm_plan(D, x.element_size())
     rows = x.numel() // D
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = _launch_fn()(x.data_ptr(), gamma.data_ptr(), y.data_ptr(), rows, D,
-                          float(eps), build.DTYPE_CODE[x.dtype], nv, int(layout == "warp"),
-                          stream)
+                          float(eps), build.DTYPE_CODE[x.dtype], nv, stream)
     if status != 0:
         raise RuntimeError(f"rmsnorm kernel launch failed with CUDA error {status}")
     rmsnorm_cuda.launches += 1

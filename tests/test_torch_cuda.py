@@ -24,7 +24,7 @@ from repro_torch.kernels.decode_attention import (DecodeAttentionPlan, decode_at
                                                   decode_attention_plan)
 from repro_torch.kernels.gemv import GemvPlan, gemv_cuda, gemv_plan
 from repro_torch.kernels.gemv_tiles import gemv_tiles_cuda, remote_first_order, tile_plan
-from repro_torch.kernels.rmsnorm import layouts_for, rmsnorm_cuda
+from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 from repro_torch.models import Model, moe
 from repro_torch.models.model import decode_launches
 from repro_torch.serving import ServeConfig, ServeEngine
@@ -332,27 +332,26 @@ def _norm_widths():
 NORM_WIDTHS = _norm_widths()
 
 
-@pytest.mark.parametrize("D,dtype,layout", [
-    (D, dtype, layout) for D in NORM_WIDTHS for dtype in sorted(DTYPES)
-    for layout in layouts_for(D, DTYPES[dtype].itemsize)])
+@pytest.mark.parametrize("D", NORM_WIDTHS)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("rows", [1, 4, 9])
-def test_rmsnorm_kernel_at_every_width_of_the_port(cuda, D, dtype, layout, rows):
+def test_rmsnorm_kernel_at_every_width_of_the_port(cuda, D, dtype, rows):
     dt = DTYPES[dtype]
     x = _randn((rows, 1, D), dt, cuda, 7)
     g = _randn((D,), dt, cuda, 8) * 0.2
     before = rmsnorm_cuda.launches
-    y = rmsnorm_cuda(x, g, layout=layout)
+    y = rmsnorm_cuda(x, g)
     torch.cuda.synchronize()
     assert rmsnorm_cuda.launches == before + 1
     assert y.dtype == dt and y.shape == x.shape
     torch.testing.assert_close(y.float(), ref.rmsnorm_ref(x.float(), g.float()), **TOL[dtype])
-    assert torch.equal(rmsnorm_cuda(x, g, layout=layout), y)  # fixed sum orders: the same bits
+    assert torch.equal(rmsnorm_cuda(x, g), y)  # fixed sum orders: the same bits
 
 
-def test_rmsnorm_kernel_refuses_rows_wider_than_its_layout(cuda):
-    with pytest.raises(ValueError, match="at most 2048"):
-        rmsnorm_cuda(torch.zeros(2, 2560, device=cuda, dtype=torch.bfloat16),
-                     torch.zeros(2560, device=cuda, dtype=torch.bfloat16), layout="warp")
+def test_rmsnorm_kernel_refuses_rows_wider_than_it_takes(cuda):
+    with pytest.raises(ValueError, match="at most 16384"):
+        rmsnorm_cuda(torch.zeros(2, 16392, device=cuda, dtype=torch.bfloat16),
+                     torch.zeros(16392, device=cuda, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="at most 8192"):
         rmsnorm_cuda(torch.zeros(2, 8196, device=cuda), torch.zeros(8196, device=cuda))
 

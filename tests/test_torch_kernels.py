@@ -18,7 +18,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
-from repro_torch.kernels.rmsnorm import layouts_for, rmsnorm_cuda, rmsnorm_plan
+from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plan
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -104,36 +104,24 @@ def test_rmsnorm_ref_matches_pallas(shape, dtype):
     np.testing.assert_allclose(_np(y_port), _np(y_pallas), **_tol(dtype))
 
 
-@pytest.mark.parametrize("layout,element_size,widths", [
-    # (D, vectors a thread): a CTA a row holds up to 256 threads, a warp 32
-    ("cta", 2, [(256, 1), (768, 1), (2048, 1), (2560, 2), (5376, 4), (7168, 4), (16384, 8)]),
-    ("cta", 4, [(256, 1), (1024, 1), (2560, 4), (7168, 8), (8192, 8)]),
-    ("warp", 2, [(256, 1), (768, 4), (1152, 8), (2048, 8)]),
-    ("warp", 4, [(64, 1), (768, 8), (1024, 8)]),
-])
-def test_rmsnorm_plan_covers_each_row_with_the_fewest_vectors(layout, element_size, widths):
-    lanes = 256 if layout == "cta" else 32
-    for d, nv in widths:
-        assert rmsnorm_plan(d, element_size, layout) == nv
-        nvec = d * element_size // 16
-        assert nv * lanes >= nvec and (nv == 1 or nv // 2 * lanes < nvec)
-    too_wide = widths[-1][0] + 16 // element_size
-    with pytest.raises(ValueError, match="at most"):
-        rmsnorm_plan(too_wide, element_size, layout)
+# (element size, D, vectors a thread): a CTA a row holds up to 256 threads
+RMSNORM_PLANS = [(2, 256, 1), (2, 768, 1), (2, 2048, 1), (2, 2560, 2), (2, 5376, 4),
+                 (2, 7168, 4), (2, 16384, 8),
+                 (4, 256, 1), (4, 1024, 1), (4, 2560, 4), (4, 7168, 8), (4, 8192, 8)]
 
 
-def test_rmsnorm_layouts_for_each_width():
-    assert layouts_for(2048, 2) == ["cta", "warp"] and layouts_for(2560, 2) == ["cta"]
-    assert layouts_for(1024, 4) == ["cta", "warp"] and layouts_for(1152, 4) == ["cta"]
-    assert layouts_for(16392, 2) == []
-    for d, size in ((768, 2), (2048, 2), (2560, 2), (7168, 4), (64, 4)):
-        for layout in layouts_for(d, size):
-            rmsnorm_plan(d, size, layout)  # takes it
+@pytest.mark.parametrize("element_size,d,nv", RMSNORM_PLANS)
+def test_rmsnorm_plan_covers_each_row_with_the_fewest_vectors(element_size, d, nv):
+    assert rmsnorm_plan(d, element_size) == nv
+    nvec = d * element_size // 16
+    assert nv * 256 >= nvec and (nv == 1 or nv // 2 * 256 < nvec)
 
 
-def test_rmsnorm_plan_refuses_an_unknown_layout():
-    with pytest.raises(ValueError, match="layout"):
-        rmsnorm_plan(256, 2, "block")
+@pytest.mark.parametrize("element_size,widest", [(2, 16384), (4, 8192)])
+def test_rmsnorm_plan_refuses_rows_wider_than_the_kernel_takes(element_size, widest):
+    assert rmsnorm_plan(widest, element_size) == 8
+    with pytest.raises(ValueError, match=f"at most {widest} "):
+        rmsnorm_plan(widest + 16 // element_size, element_size)
 
 
 def test_cpu_dispatch_uses_plain_versions_and_launches_nothing():
