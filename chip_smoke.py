@@ -55,8 +55,28 @@ Phases, each printing one JSON line:
            zamba2 and xlstm) in float32 through the decode step and
            ServeEngine on the card and on the CPU: first-step logits close,
            MoE routing identical at every step, greedy tokens and stats
-           identical.
-Then the kernel summary line, the card's name and power limit, and last
+           identical;
+  train    the training paths at full width and depth through Trainer (bf16
+           weights from a seeded generator, float32 master, AdamW, the
+           synthetic data through prefetch): gemma3-1b (999,812,736
+           parameters; B 4 x S 1024 in 2 microbatches, 8 steps, lr 3e-3,
+           warmup 5) and xlstm-125m (B 8 x S 128, 6 steps): the loss falls,
+           exact rmsnorm forward / backward launches a step (106 / 106, 13 /
+           13), ms a step, tokens/s, peak memory beside the 16 bytes a
+           parameter of state, and one profiled step (device busy, idle
+           share, top rows);
+  train_parity  the reduced gemma3-1b, xlstm-125m, zamba2-2.7b, minicpm3-4b
+           and olmoe-1b-7b in float32 on the card and the CPU: the loss and
+           every gradient, and the parameters after 3 AdamW steps; then a
+           checkpoint/restart drill on the card (a failure before step 4,
+           restored bit for bit).
+The kernels phase also holds the rmsnorm backward (the port's own kernel: the
+reference differentiates rms_norm through XLA) against its plain version at
+the training shapes, bits repeating over 5 calls and a bf16 dgamma
+accumulator rejected, beside the backward of F.rms_norm, and the forward at
+the gemma3-1b training shape [2048, 1152].
+Then a timing line (seconds from the start to the end of each phase), the
+kernel summary line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Any failure raises: the script exits non-zero
 and prints no result.  Without a CUDA device it exits 2 at once.
 """
@@ -88,6 +108,9 @@ F32_TOL = dict(rtol=3e-5, atol=3e-5)  # float32 kernels: the reference's own _to
 SOURCES = {  # kernel: (CUDA source, the TPU kernel's pallas_call site)
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:44"),
+    # the port's own kernel: the reference differentiates rms_norm through XLA
+    "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                    "src/repro/models/common.py:244"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:83"),
     "gemv": ("src/repro_torch/kernels/csrc/gemv.cu", "src/repro/kernels/gemv.py:53"),
@@ -152,6 +175,30 @@ ATTENTION_HEADS = {"gemma3_27b": (32, 16, 128), "qwen2_vl_7b": (28, 4, 128),
                    "kimi_k2": (64, 8, 112)}
 ATTENTION_CHUNKS = (16, 32, 64, 128)  # the measured plan variants at the serve shape
 
+
+# a wrapper that makes two launches a call: the second kernel's device rows
+# add their time to the first's label and are not counted as launches
+COMPANION_KERNELS = {"rmsnorm_bwd_dgamma": "rmsnorm_bwd"}
+# the training paths (slice 4a): gemma3-1b, the main path, B 4 x S 1024 in 2
+# microbatches, 8 AdamW steps; xlstm-125m, repro.launch.train's defaults (B 8
+# x S 128, one microbatch), 6 steps.  Both at full width and depth, the data's
+# token ids from a vocabulary of 4096 (the data's vocab x vocab transition
+# table does not fit at the models' vocabularies).  rmsnorm forward / backward
+# launches a step: a norm's forward once a microbatch, its backward once
+TRAIN_MAIN = "gemma3-1b"
+TRAIN_RUNS = {  # arch: (batch, seq, microbatches, steps, lr, warmup)
+    TRAIN_MAIN: (4, 1024, 2, 8, 3e-3, 5),
+    "xlstm-125m": (8, 128, 1, 6, 3e-3, 5),
+}
+TRAIN_LAUNCHES_PER_STEP = {TRAIN_MAIN: {"rmsnorm": 106, "rmsnorm_bwd": 106},
+                           "xlstm-125m": {"rmsnorm": 13, "rmsnorm_bwd": 13}}
+TRAIN_DATA_VOCAB = 4096
+# card against CPU in float32 on the reduced configs: every gradient after one
+# step, parameters after 3 AdamW steps
+TRAIN_PARITY_ARCHS = ("gemma3-1b", "xlstm-125m", "zamba2-2.7b", "minicpm3-4b", "olmoe-1b-7b")
+TRAIN_PARITY_TOL = 1e-4  # of each gradient tensor's largest entry; of the loss, relative
+G_NOISE = 1e-5  # a nonzero float32 gradient below this is near-cancelling noise (AdamW)
+RMSNORM_BWD_SHAPES = ((2048, 1152), (1024, 768))  # the two training paths' rows x D
 
 # torch.profiler on the card drops activity records now and then, in bursts
 # that can span several sessions in a row (a session may lose a few of its
@@ -228,15 +275,18 @@ def _worst_ratio(out: torch.Tensor, want: torch.Tensor, tol: dict = BF16_TOL) ->
     return ((out.float() - want).abs() / lim).max().item()
 
 
-def _profiled(warmup, run) -> tuple:
+def _profiled(warmup, run, host_ops: bool = True) -> tuple:
     """``(key_averages, run's result)``: ``run()`` under torch.profiler after
     one warm-up cycle of ``warmup()`` whose events are dropped: a long
     session can miss its first records, so the measured calls come only
-    after the tracer has run for a cycle."""
+    after the tracer has run for a cycle.  ``host_ops=False`` records the
+    device's activity alone (a train step's 10^5 host ops take the
+    profiler minutes to process)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     ready = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=activities,
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                  on_trace_ready=lambda p: ready.append(p.key_averages())) as prof:
         warmup()
@@ -302,6 +352,7 @@ def _profile_calls(calls: dict, operands: list, reps: int = 20,
     all.
     """
     ours = [k for k in calls if k != "library"]
+    companions = {c: k for c, k in COMPANION_KERNELS.items() if k in ours}
 
     def warmup():
         for fn in calls.values():
@@ -327,16 +378,20 @@ def _profile_calls(calls: dict, operands: list, reps: int = 20,
         total_us = {}
         for key, us, n in rows:
             mine = next((k for k in ours if f"::{k}_kernel<" in key), None)
+            second = next((k for c, k in companions.items() if f"::{c}_kernel<" in key), None)
             if mine is not None:  # a kernel may show under more than one key
                 seen[mine] = seen.get(mine, 0) + n
                 total_us[mine] = total_us.get(mine, 0.0) + us
-                out[mine] = total_us[mine] / 1e3 / seen[mine]
+            elif second is not None:  # the second launch of a call: time, no count
+                total_us[second] = total_us.get(second, 0.0) + us
             elif "memset" in key.lower():
                 out["memset"] += us / 1e3 / (reps * len(ours))
             elif "library" in calls:
                 out["library"] += us / 1e3 / reps
             else:
                 raise AssertionError(f"unexpected device work {key!r} in a profile of {ours}")
+        for k in seen:
+            out[k] = total_us[k] / 1e3 / seen[k]
         if all(seen.get(k) == reps for k in ours) and out.get("library", 1.0) > 0.0:
             return out
     raise AssertionError(f"in {attempts} profiles of {reps} calls the profiler saw "
@@ -592,8 +647,9 @@ def _attention_sweep(gen: torch.Generator, sms: int) -> dict:
     return out
 
 
-def _rmsnorm_at(gen: torch.Generator, d: int) -> dict:
-    """rmsnorm at a serve path's shape, x [B, 1, d] bf16: checked against the
+def _rmsnorm_at(gen: torch.Generator, d: int, rows: int = REQUESTS) -> dict:
+    """rmsnorm at a path's shape, x [rows, 1, d] bf16 (a serve path's decode
+    batch by default): checked against the
     plain version, timed by events beside the plain version and F.rms_norm,
     and by device time per launch in one profile with F.rms_norm and the
     empty kernel (the launch floor)."""
@@ -601,7 +657,7 @@ def _rmsnorm_at(gen: torch.Generator, d: int) -> dict:
     from repro_torch.kernels.empty import empty_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plan
 
-    x = torch.randn(REQUESTS, 1, d, generator=gen, device="cuda").to(torch.bfloat16)
+    x = torch.randn(rows, 1, d, generator=gen, device="cuda").to(torch.bfloat16)
     g = (torch.randn(d, generator=gen, device="cuda") * 0.2).to(torch.bfloat16)
     y = rmsnorm_cuda(x, g)
     y_plain = ref.rmsnorm_ref(x.float(), g.float())
@@ -627,6 +683,111 @@ def _rmsnorm_at(gen: torch.Generator, d: int) -> dict:
                launch_floor_device_ms=floor,
                reaches_half_of_max_bound_and_floor=mine <= 2 * max(b_ms, floor))
     return rms
+
+
+def _dgamma_bf16_accumulator(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
+                             eps: float = 1e-6) -> torch.Tensor:
+    """The faulty control of the backward: dgamma summed over rows with a
+    bf16 accumulator, row by row."""
+    x32 = x.float().reshape(-1, x.shape[-1])
+    r = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    prod = dy.float().reshape(x32.shape) * (x32 * r)
+    acc = torch.zeros(x.shape[-1], dtype=torch.bfloat16, device=x.device)
+    for row in prod:
+        acc = (acc.float() + row).to(torch.bfloat16)
+    return acc
+
+
+def _rmsnorm_bwd_at(gen: torch.Generator, rows: int, d: int) -> dict:
+    """The rmsnorm backward at a training path's shape, x, g, dy [rows, d]
+    bf16: checked against its plain version (dx and dgamma), the same bits
+    over 5 launches, a faulty control (a bf16 dgamma accumulator) the
+    tolerance must reject; timed by events beside the plain version and the
+    backward of F.rms_norm with weight 1 + gamma (autograd, the same dx and
+    dgamma), and by device time per call of both in one profile."""
+    from repro_torch.kernels.gemv import sm_count
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_bwd_plan, rmsnorm_bwd_ref
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    x = randn(rows, d).to(torch.bfloat16)
+    g = (randn(d) * 0.2).to(torch.bfloat16)
+    dy = randn(rows, d).to(torch.bfloat16)
+    dx, dg = rmsnorm_bwd_cuda(x, g, dy)
+    want_dx, want_dg = rmsnorm_bwd_ref(x.float(), g.float(), dy.float())
+    torch.testing.assert_close(dx.float(), want_dx, **BF16_TOL)
+    torch.testing.assert_close(dg.float(), want_dg, **BF16_TOL)
+    for _ in range(5):
+        again = rmsnorm_bwd_cuda(x, g, dy)
+        if not (torch.equal(again[0], dx) and torch.equal(again[1], dg)):
+            raise AssertionError(f"rmsnorm backward [{rows}, {d}]: bits differ between launches")
+    control = _worst_ratio(_dgamma_bf16_accumulator(x, g, dy), want_dg)
+    if control <= 1.0:
+        raise AssertionError(f"tolerance {BF16_TOL} lets a bf16 dgamma accumulator pass "
+                             f"(worst ratio {control})")
+    xr = x.detach().clone().requires_grad_(True)
+    wr = (1.0 + g.float()).to(torch.bfloat16).requires_grad_(True)
+    y_lib = F.rms_norm(xr, (d,), weight=wr, eps=1e-6)
+
+    def library(_=None):
+        return torch.autograd.grad(y_lib, (xr, wr), dy, retain_graph=True)
+
+    lib_dx, lib_dw = library()
+    # x, g and dy read once, dx written once; gamma read and dgamma written once
+    nbytes = 3 * rows * d * 2 + 2 * d * 2
+    b_ms, b_by = bound_ms(nbytes, 12 * rows * d, "float32")
+    same_run = _profile_calls({"rmsnorm_bwd": lambda _: rmsnorm_bwd_cuda(x, g, dy),
+                               "library": library}, [None])
+    per_cta = rmsnorm_bwd_plan(rows, sm_count(x.device))
+    return {
+        "shape": [rows, d], "dtype": "bfloat16",
+        "plan": {"rows_per_cta": per_cta, "ctas": -(-rows // per_cta),
+                 "workspace_bytes": -(-rows // per_cta) * d * 4},
+        "max_abs_err": max((dx.float() - want_dx).abs().max().item(),
+                           (dg.float() - want_dg).abs().max().item()),
+        "worst_ratio_dx": _worst_ratio(dx, want_dx), "worst_ratio_dgamma": _worst_ratio(dg, want_dg),
+        "bits_repeat": 5, "control_bf16_dgamma_accumulator_worst_ratio": control,
+        "library_worst_ratio_dx": _worst_ratio(lib_dx, want_dx),
+        "library_worst_ratio_dgamma": _worst_ratio(lib_dw, want_dg),
+        "ms": time_ms(lambda: rmsnorm_bwd_cuda(x, g, dy)),
+        "plain_ms": time_ms(lambda: rmsnorm_bwd_ref(x, g, dy)),
+        "library_ms": time_ms(library),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "device_ms": same_run["rmsnorm_bwd"], "library_device_ms": same_run["library"],
+        **_rates(nbytes, b_ms, same_run["rmsnorm_bwd"]),
+    }
+
+
+def _rmsnorm_bwd_checks(gen: torch.Generator) -> list:
+    """The backward against its plain version in float32 at every width the
+    train_parity configs' norms take (d_model, MLA's latent ranks), 48 rows
+    (2 x 24 tokens); two calls give the same bits."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_bwd_ref
+
+    widths = set()
+    for arch in TRAIN_PARITY_ARCHS:
+        cfg = reduced(get_config(arch))
+        widths.add(cfg.d_model)
+        if cfg.attn_kind == "mla":
+            widths.update(r for r in (cfg.mla_kv_rank, cfg.mla_q_rank) if r)
+    out = []
+    for d in sorted(widths):
+        x = torch.randn(48, d, generator=gen, device="cuda")
+        g = torch.randn(d, generator=gen, device="cuda") * 0.2
+        dy = torch.randn(48, d, generator=gen, device="cuda")
+        dx, dg = rmsnorm_bwd_cuda(x, g, dy)
+        want_dx, want_dg = rmsnorm_bwd_ref(x, g, dy)
+        torch.testing.assert_close(dx, want_dx, **F32_TOL)
+        torch.testing.assert_close(dg, want_dg, **F32_TOL)
+        again = rmsnorm_bwd_cuda(x, g, dy)
+        if not (torch.equal(again[0], dx) and torch.equal(again[1], dg)):
+            raise AssertionError(f"rmsnorm backward D {d} float32: bits differ between calls")
+        out.append({"D": d, "rows": 48, "dtype": "float32",
+                    "worst_ratio_dx": _worst_ratio(dx, want_dx, F32_TOL),
+                    "worst_ratio_dgamma": _worst_ratio(dg, want_dg, F32_TOL)})
+    return out
 
 
 def _rmsnorm_checks(gen: torch.Generator) -> list:
@@ -829,7 +990,11 @@ def phase_kernels() -> dict:
     # this slice's main path, olmoe-1b-7b: x [4, 1, 2048]; q [4, 16, 128] and
     # k/v [4, S, 16, 128], S = 480 + 64 on every layer
     olmoe = OLMOE_HEADS
+    rms_bwd = {f"{r}x{d}": _rmsnorm_bwd_at(gen, r, d) for r, d in RMSNORM_BWD_SHAPES}
     return {"phase": "kernels", "tolerance": BF16_TOL, "f32_tolerance": F32_TOL,
+            "rmsnorm_bwd": rms_bwd[f"{RMSNORM_BWD_SHAPES[0][0]}x{RMSNORM_BWD_SHAPES[0][1]}"],
+            "rmsnorm_bwd_by_shape": rms_bwd, "rmsnorm_bwd_checks": _rmsnorm_bwd_checks(gen),
+            "rmsnorm_train_gemma3_1b": _rmsnorm_at(gen, 1152, rows=2048),
             "rmsnorm": _rmsnorm_at(gen, olmoe["d_model"]),
             "rmsnorm_by_width": {d: _rmsnorm_at(gen, d) for d in RMSNORM_WIDTHS},
             "rmsnorm_checks": _rmsnorm_checks(gen),
@@ -1326,6 +1491,249 @@ def phase_parity() -> dict:
     return {"phase": "parity", "dtype": "float32", "tolerance": F32_LOGIT_TOL, "configs": out}
 
 
+def _train_profile(trainer, batch, expect: dict) -> tuple:
+    """Device time by kernel over one train step (torch.profiler), after one
+    warm-up step whose events are dropped; made again (up to PROFILE_ATTEMPTS
+    profiles) until the profile holds the step's rmsnorm forward and
+    backward launches.  Returns (device rows, metrics of the profiled step,
+    profiles made)."""
+    for attempt in range(PROFILE_ATTEMPTS):
+        time.sleep(PROFILE_PAUSE_S * attempt)
+        averages, (trainer.opt_state, metrics) = _profiled(
+            lambda: trainer.step_fn(trainer.opt_state, batch["tokens"], batch["labels"]),
+            lambda: trainer.step_fn(trainer.opt_state, batch["tokens"], batch["labels"]),
+            host_ops=False)
+        rows, _ = _device_ms_per_launch(averages, ())
+        seen = {"rmsnorm": sum(n for key, _, n in rows if "::rmsnorm_kernel<" in key),
+                "rmsnorm_bwd": sum(n for key, _, n in rows if "::rmsnorm_bwd_kernel<" in key)}
+        if seen == expect:
+            return rows, metrics, attempt + 1
+    raise AssertionError(f"in {PROFILE_ATTEMPTS} profiles of a train step the profiler saw "
+                         f"{seen} rmsnorm launches, not {expect}")
+
+
+def phase_train(card: str, arch: str) -> dict:
+    """``arch`` at full width and depth trained on the card through Trainer:
+    seeded bf16 weights with float32 master, AdamW, the synthetic data
+    (vocabulary TRAIN_DATA_VOCAB) through prefetch, as launch/train.py runs
+    it.  The kernels' counts are set to 0 just before the run and read just
+    after: exact rmsnorm forward and backward launches a step.  Then one
+    profiled step: device busy ms, idle share against the median unprofiled
+    step, the top device rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset, prefetch
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import TrainConfig, Trainer
+
+    batch, seq, mb, steps, lr, warmup = TRAIN_RUNS[arch]
+    cfg = get_config(arch)  # full width and depth, bf16
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    tcfg = TrainConfig(microbatches=mb, optim=AdamWConfig(lr=lr, warmup_steps=warmup,
+                                                          total_steps=steps))
+    trainer = Trainer(model, tcfg)
+    trainer.init_state(torch.Generator(device=dev).manual_seed(0))
+    data = SyntheticLMDataset(DataConfig(vocab=TRAIN_DATA_VOCAB, seq_len=seq,
+                                         global_batch=batch))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    # bf16 parameter and gradient, float32 master, mu and nu
+    state_bytes = 2 * param_bytes + 12 * n_params
+    batches = prefetch(iter(data))
+
+    torch.cuda.synchronize()
+    allocated_at_start = torch.cuda.memory_allocated()
+    rmsnorm_cuda.launches = rmsnorm_bwd_cuda.launches = 0
+    t0 = time.perf_counter()
+    history = trainer.run(batches, steps, log_every=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"rmsnorm": rmsnorm_cuda.launches, "rmsnorm_bwd": rmsnorm_bwd_cuda.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    per_step = TRAIN_LAUNCHES_PER_STEP[arch]
+    expect = {k: n * steps for k, n in per_step.items()}
+    if launches != expect:
+        raise AssertionError(f"{arch} train: kernel launches {launches} != {expect}")
+    losses = [h["loss"] for h in history]
+    if len(history) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"{arch} train: history {history}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch} train: loss did not fall, {losses}")
+    step_ms = [h["dt"] * 1e3 for h in history]
+    median_ms = float(np.median(step_ms[1:]))
+    tokens_per_step = batch * seq
+
+    rows, metrics, sessions = _train_profile(trainer, next(batches), per_step)
+    busy_ms = sum(r[1] for r in rows) / 1e3
+    bwd_ms = sum(us for key, us, _ in rows if "::rmsnorm_bwd" in key) / 1e3
+    fwd_ms = sum(us for key, us, _ in rows if "::rmsnorm_kernel<" in key) / 1e3
+    grad_norm = float(metrics["grad_norm"])
+    if not np.isfinite(grad_norm):
+        raise AssertionError(f"{arch} train: grad norm {grad_norm}")
+    out = {"phase": "train", "arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "dtype": "bfloat16", "master": "float32", "batch": batch, "seq": seq,
+           "microbatches": mb, "steps": steps, "lr": lr, "warmup_steps": warmup,
+           "data_vocab": TRAIN_DATA_VOCAB, "model_vocab": cfg.vocab, "remat": "none",
+           "init_s": init_s, "wall_s": wall, "step_ms": step_ms,
+           "ms_per_step_median_2_on": median_ms,
+           "tokens_per_s": tokens_per_step / (median_ms * 1e-3),
+           "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+           "grad_norm_profiled_step": grad_norm,
+           "launches": launches, "launches_per_step": per_step, "expected_launches": expect,
+           "peak_mem_bytes": peak, "allocated_at_start_bytes": allocated_at_start,
+           "param_bytes": param_bytes, "param_grad_optimizer_bytes": state_bytes,
+           "profile": {"sessions": sessions, "device_busy_ms": busy_ms,
+                       "device_idle_share": 1 - busy_ms / median_ms,
+                       "device_launches": sum(r[2] for r in rows),
+                       "rmsnorm_device_ms": fwd_ms, "rmsnorm_bwd_device_ms": bwd_ms,
+                       "top": [{"name": key[:80], "device_ms": us / 1e3, "count": n}
+                               for key, us, n in rows[:15]]},
+           "card": card}
+    del trainer, model, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _near_zero_grads(model, tokens, labels) -> dict:
+    """Entries whose gradient at the model's current weights is nonzero and
+    below G_NOISE: AdamW's first updates are about lr times their sign, so
+    float32 rounding there can move the update by up to a whole one."""
+    model.zero_grad(set_to_none=True)
+    loss, _ = model.loss_fn(tokens, labels)
+    loss.backward()
+    out = {n: (p.grad != 0) & (p.grad.abs() < G_NOISE) for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def phase_train_parity() -> dict:
+    """Each TRAIN_PARITY_ARCHS config reduced, float32, on the card and on
+    the CPU from the same weights: the loss and every gradient of one batch;
+    then the parameters after 3 AdamW steps through build_train_step.  Then a
+    checkpoint/restart drill on the card: Trainer with ckpt_every 2 and a
+    SimulatedFailure before step 4, the restored tensors bit for bit those
+    saved, and the history longer than its steps."""
+    from repro_torch.checkpoint import load_tree
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.ft import SimulatedFailure
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.training import TrainConfig, Trainer, build_train_step
+
+    out = {}
+    for arch in TRAIN_PARITY_ARCHS:
+        cfg = reduced(get_config(arch)).with_(param_dtype=torch.float32)
+        gpu = Model(cfg).init(torch.Generator().manual_seed(1))
+        cpu = Model(cfg, device="cpu")
+        cpu.load_state_dict(gpu.state_dict())
+        rng = np.random.default_rng(0)
+        batches = [(torch.from_numpy(rng.integers(0, cfg.vocab, (4, 24))),
+                    torch.from_numpy(rng.integers(0, cfg.vocab, (4, 24)))) for _ in range(3)]
+        res = {}
+        for name, model in (("cuda", gpu), ("cpu", cpu)):
+            model.requires_grad_(True)
+            loss, _ = model.loss_fn(batches[0][0].to(model.device), batches[0][1].to(model.device))
+            loss.backward()
+            res[name] = (loss.item(), {n: p.grad.detach().cpu() for n, p in
+                                       model.named_parameters()})
+            model.zero_grad(set_to_none=True)
+        loss_err = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+        grad_ratio = max(((res["cuda"][1][n] - g).abs().max() /
+                          (TRAIN_PARITY_TOL * max(g.abs().max().item(), 1e-6))).item()
+                         for n, g in res["cpu"][1].items())
+        if loss_err > TRAIN_PARITY_TOL or grad_ratio > 1.0:
+            raise AssertionError(f"{arch}: loss differs by {loss_err}, gradients' worst ratio "
+                                 f"{grad_ratio}")
+        tcfg = TrainConfig(optim=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=6))
+        noisy = {n: torch.zeros(p.shape, dtype=torch.bool) for n, p in cpu.named_parameters()}
+        lr_sum = 0.0
+        steps = {name: build_train_step(m, tcfg) for name, m in (("cuda", gpu), ("cpu", cpu))}
+        states = {name: adamw_init(dict(m.named_parameters()), tcfg.optim)
+                  for name, m in (("cuda", gpu), ("cpu", cpu))}
+        for tokens, labels in batches:
+            for n, m in _near_zero_grads(cpu, tokens, labels).items():
+                noisy[n] |= m
+            for name, m in (("cuda", gpu), ("cpu", cpu)):
+                states[name], metrics = steps[name](states[name], tokens.to(m.device),
+                                                    labels.to(m.device))
+            lr_sum += float(metrics["lr"])
+        param_ratio, outside, n_total = 0.0, 0, 0
+        cpu_params = dict(cpu.named_parameters())
+        for n, p in gpu.named_parameters():
+            want = cpu_params[n].detach()
+            diff = (p.detach().cpu() - want).abs()
+            lim = TRAIN_PARITY_TOL * (1 + want.abs())
+            out_mask = diff > lim
+            if not (bool(noisy[n][out_mask].all()) and bool((diff[out_mask] <= 2 * lr_sum).all())):
+                raise AssertionError(f"{arch}: parameter {n} differs beyond {TRAIN_PARITY_TOL} "
+                                     f"at an entry whose gradient is not near zero")
+            outside += int(out_mask.sum())
+            n_total += p.numel()
+            param_ratio = max(param_ratio, (diff[~out_mask] / lim[~out_mask]).max().item()
+                              if (~out_mask).any() else 0.0)
+        if outside > 1e-4 * n_total:
+            raise AssertionError(f"{arch}: {outside} of {n_total} parameters outside the bound")
+        out[arch] = {"loss_rel_err": loss_err, "grad_worst_ratio": grad_ratio,
+                     "params_after_3_steps_worst_ratio": param_ratio,
+                     "entries_held_to_2_lr_sum": outside, "params": n_total,
+                     "gradients": len(res["cpu"][1])}
+        del gpu, cpu
+
+    # the drill: reduced gemma3-1b in bf16 (float32 state) on the card
+    cfg = reduced(get_config("gemma3-1b"))
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    if ckpt_dir.exists():
+        import shutil
+        shutil.rmtree(ckpt_dir)
+    fails = {3}
+
+    def inject(step):
+        if step in fails:
+            fails.discard(step)
+            raise SimulatedFailure(f"injected before step {step + 1}")
+
+    n_steps = 6
+    model = Model(cfg)
+    tr = Trainer(model, TrainConfig(optim=AdamWConfig(lr=1e-2, warmup_steps=2,
+                                                      total_steps=n_steps)),
+                 ckpt_dir=str(ckpt_dir), ckpt_every=2, failure_injector=inject)
+    tr.init_state(torch.Generator(device="cuda").manual_seed(0))
+    data = iter(SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4)))
+    hist = tr.run(data, n_steps, log_every=0)
+    if not (len(hist) > n_steps and [h["step"] for h in hist] == [1, 2, 3, 3, 4, 5, 6]):
+        raise AssertionError(f"drill history {hist}")
+    shapes = {n: torch.empty_like(p, device="meta") for n, p in model.named_parameters()}
+    saved = load_tree({"params": shapes, "state": adamw_init(shapes, tr.tcfg.optim)},
+                      str(ckpt_dir / f"step_{n_steps:07d}"), torch.device("cuda"))
+    same = all(torch.equal(saved["params"][n], p) for n, p in model.named_parameters())
+    same &= torch.equal(saved["state"]["step"], tr.opt_state["step"])
+    same &= all(torch.equal(saved["state"][k][n], tr.opt_state[k][n])
+                for k in ("mu", "nu", "master") for n in shapes)
+    if not same:
+        raise AssertionError("the checkpoint does not give back the trained tensors bit for bit")
+    # a restart restores those tensors into a fresh model
+    model2 = Model(cfg)
+    tr2 = Trainer(model2, tr.tcfg, ckpt_dir=str(ckpt_dir), ckpt_every=2)
+    if not (tr2.maybe_restore() and tr2.step == n_steps and all(
+            torch.equal(p, saved["params"][n]) for n, p in model2.named_parameters())):
+        raise AssertionError("maybe_restore did not restore the last checkpoint bit for bit")
+    drill = {"arch": cfg.name, "dtype": "bfloat16", "steps": n_steps, "failure_before_step": 4,
+             "history_steps": [h["step"] for h in hist], "checkpoints": tr.ckpt.steps(),
+             "loss_first": hist[0]["loss"], "loss_last": hist[-1]["loss"],
+             "restored_bit_for_bit": True}
+    return {"phase": "train_parity", "dtype": "float32", "tolerance": TRAIN_PARITY_TOL,
+            "g_noise": G_NOISE, "configs": out, "drill": drill}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1335,44 +1743,62 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    ended = {}  # seconds from the start to the end of each phase
+
+    def done(name: str, line: dict) -> dict:
+        emit(line)
+        ended[name] = time.perf_counter() - t_start
+        return line
+
     card = card_line()
-    emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0),
-          "count": torch.cuda.device_count()})
-    emit(phase_build())
-    kernels = phase_kernels()
-    emit(kernels)
+    done("device", {"phase": "device", "nvidia_smi": card, "torch": torch.__version__,
+                    "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0),
+                    "count": torch.cuda.device_count()})
+    done("build", phase_build())
+    kernels = done("kernels", phase_kernels())
     torch.cuda.empty_cache()
-    allreduce = phase_gemv_allreduce()
-    emit(allreduce)
-    emit(phase_scans())
+    allreduce = done("gemv_allreduce", phase_gemv_allreduce())
+    done("scans", phase_scans())
     serves, profiles = {}, {}
     for arch in SERVE_ARCHS:
         model, serves[arch] = phase_serve(card, arch)
         emit(serves[arch])
-        profiles[arch] = phase_profile(model)
-        emit(profiles[arch])
+        profiles[arch] = done(f"{arch} serve", phase_profile(model))
         del model
         torch.cuda.empty_cache()
-    emit(phase_families(card))
-    emit(phase_parity())
+    done("families", phase_families(card))
+    done("parity", phase_parity())
+    trains = {arch: done(f"{arch} train", phase_train(card, arch)) for arch in TRAIN_RUNS}
+    done("train_parity", phase_train_parity())
+    emit({"phase": "timing", "seconds_at_end_of": ended})
 
     def launches_and_device_ms(name):
         # the serve paths' kernels: launches in the main path's serve phase
         # (olmoe-1b-7b), mean device time per launch on that path (its profile
+        # phase); the backward's: launches on this slice's main path, the
+        # gemma3-1b train phase, device time per call at its shape (kernels
         # phase); gemv's: launches over every rank of the gemv_allreduce phase,
         # device time per launch at the gemma3-27b shard (kernels phase).
         # `ms` is back-to-back calls by CUDA events, host dispatch included.
         if name in SERVE_KERNELS:
             return (serves[MAIN_ARCH]["launches"][name],
                     profiles[MAIN_ARCH]["kernels"][name]["device_ms_per_launch"])
+        if name == "rmsnorm_bwd":
+            return trains[TRAIN_MAIN]["launches"][name], kernels[name]["device_ms"]
         return allreduce["launches"][name], kernels[name]["device_ms"]
+
+    def by_path(name):
+        paths = {f"{a} serve": serves[a]["launches"][name] for a in serves
+                 if name in SERVE_KERNELS}
+        paths.update({f"{a} train": trains[a]["launches"][name] for a in trains
+                      if name in trains[a]["launches"]})
+        return {"launches_by_path": paths} if paths else {}
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          **dict(zip(("launches", "device_ms"), launches_and_device_ms(name))),
-         **({"launches_by_path": {f"{a} serve": serves[a]["launches"][name] for a in serves}}
-            if name in SERVE_KERNELS else {}),
+         **by_path(name),
          **{key: kernels[name][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms", "library_device_ms")},
          **{key: kernels[name][key] for key in ("cold_device_ms", "library_cold_device_ms",

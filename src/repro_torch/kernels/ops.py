@@ -2,6 +2,9 @@
 
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to its plain
 version.  There is no fallback: a CUDA call that the kernel refuses raises.
+``rmsnorm`` is differentiable on both: on the card through
+:class:`~.rmsnorm.RMSNormFunction` (the forward and backward kernels) where
+autograd records, on the CPU through the plain version's own autograd.
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ import torch
 from .decode_attention import decode_attention_cuda, decode_attention_ref
 from .gemv import gemv_cuda, gemv_ref
 from .gemv_tiles import gemv_tiles_cuda, gemv_tiles_ref
-from .rmsnorm import rmsnorm_cuda, rmsnorm_ref
+from .rmsnorm import RMSNormFunction, rmsnorm_bwd_cuda, rmsnorm_cuda, rmsnorm_ref
 
 __all__ = ["decode_attention", "gemv", "gemv_tiles", "rmsnorm"]
 
@@ -38,7 +41,13 @@ def gemv_tiles(a: torch.Tensor, x: torch.Tensor, *, n_dev: int, my_dev: int, bm:
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
-    """Fused RMSNorm with the ``(1 + gamma)`` scale."""
+    """Fused RMSNorm with the ``(1 + gamma)`` scale.
+
+    On the card one forward launch a call; where autograd records (grad mode
+    on and x or gamma requiring grad) the backward kernel gives the gradients.
+    """
     if x.is_cuda:
+        if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad):
+            return RMSNormFunction.apply(x, gamma, eps, (rmsnorm_cuda, rmsnorm_bwd_cuda))
         return rmsnorm_cuda(x, gamma, eps)
     return rmsnorm_ref(x, gamma, eps)

@@ -10,7 +10,9 @@ block's parameters sit once under ``params["shared"]``.  The port keeps one
 block per layer, ``blocks.<i>``, and the shared block once, ``shared``.  :func:`params_from_jax`
 takes that tree with numpy leaves (bf16 leaves as ``ml_dtypes.bfloat16``
 arrays, as ``np.asarray`` gives them) and returns a ``state_dict`` for
-``Model(cfg)``.  No JAX is imported: the caller converts to numpy.
+``Model(cfg)``.  :func:`opt_state_from_jax` carries the reference's AdamW
+state across by the same walk, its moments and master kept in float32.  No
+JAX is imported: the caller converts to numpy.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 from .common import ModelConfig
 from .model import build_plan, param_specs
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "opt_state_from_jax"]
 
 
 def _to_torch(a: Any) -> torch.Tensor:
@@ -33,8 +35,9 @@ def _to_torch(a: Any) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
-def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """``state_dict`` of ``Model(cfg)`` from the reference's numpy parameter tree."""
+def _flatten(np_tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The leaves of a tree shaped like the reference's parameters, as
+    tensors of their own dtype under the port's ``state_dict`` names."""
     specs = param_specs(cfg)
     plan = build_plan(cfg)
     if len(np_tree["stages"]) != len(plan):
@@ -71,5 +74,25 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torc
         t = _to_torch(flat[name])
         if tuple(t.shape) != spec.shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {spec.shape}")
-        out[name] = t.to(spec.dtype)
+        out[name] = t
+    return out
+
+
+def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """``state_dict`` of ``Model(cfg)`` from the reference's numpy parameter tree."""
+    specs = param_specs(cfg)
+    return {name: t.to(specs[name].dtype) for name, t in _flatten(np_tree, cfg).items()}
+
+
+def opt_state_from_jax(np_state: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """The port's AdamW state (``repro_torch.optim``) from the reference's
+    ``adamw_init`` / ``adamw_step`` state with numpy leaves: ``step`` as an
+    int32 scalar, ``mu`` / ``nu`` / ``master`` keyed like ``state_dict`` and
+    kept in float32 (a cast to the parameters' dtype would round the master)."""
+    out: Dict[str, Any] = {"step": torch.tensor(int(np.asarray(np_state["step"])),
+                                                dtype=torch.int32)}
+    for key in ("mu", "nu", "master"):
+        if key in np_state:
+            out[key] = {name: t.to(torch.float32)
+                        for name, t in _flatten(np_state[key], cfg).items()}
     return out

@@ -12,8 +12,11 @@ applied after each group of Mamba layers.  :func:`layer_blocks` walks the
 plan as the reference's ``_layer_blocks`` does, one entry per applied block
 (zamba2-2.7b: 63, of which 9 are the shared block); the entry index is what
 the caches and ``is_global_attn`` receive.  ``forward``, ``prefill`` and
-``decode_step`` walk the entries in a Python loop, under
-``torch.no_grad()``: training is a later slice.
+``decode_step`` walk the entries in a Python loop; ``prefill`` and
+``decode_step`` run under ``torch.no_grad()``, ``forward`` records for
+autograd, and ``loss_fn`` is the reference's training loss on it.  Remat
+"full" (the reference's ``jax.checkpoint`` around each scanned block) is
+``torch.utils.checkpoint`` around each entry.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..device import resolve_device
@@ -316,6 +321,16 @@ class Model(nn.Module):
     def n_params(self) -> int:
         return count_params(self.param_specs())
 
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE: only routed experts count)."""
+        cfg = self.cfg
+        total = self.n_params()
+        if cfg.n_experts == 0:
+            return total
+        moe_layers = cfg.n_layers - cfg.first_dense_layers
+        per_expert = 3 * cfg.d_model * cfg.d_ff
+        return total - moe_layers * (cfg.n_experts - cfg.experts_per_token) * per_expert
+
     # -- embedding / head -------------------------------------------------------
 
     def _embed(self, tokens: Optional[torch.Tensor] = None,
@@ -344,25 +359,64 @@ class Model(nn.Module):
 
     # -- full forward -------------------------------------------------------------
 
-    def _layers(self, x: torch.Tensor):
-        """Every entry's full causal pass: ``(x, summed aux losses, cache entries)``."""
+    def _layers(self, x: torch.Tensor, *, remat: bool = False):
+        """Every entry's full causal pass: ``(x, summed aux losses, cache
+        entries)``; with ``remat`` each entry under ``torch.utils.checkpoint``
+        (its activations recomputed in the backward) and no cache entries."""
         B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
         aux_total = _zero_aux(x.device)
         kvs = []
         for li, block in enumerate(self.entries):
-            x, aux, kv = block(x, positions, li)
+            if remat:
+                x, aux, _ = torch.utils.checkpoint.checkpoint(block, x, positions, li,
+                                                              use_reentrant=False)
+            else:
+                x, aux, kv = block(x, positions, li)
+                kvs.append(kv)
             aux_total = {k: aux_total[k] + aux[k] for k in AUX_KEYS}
-            kvs.append(kv)
         return x, aux_total, kvs
 
-    @torch.no_grad()
     def forward(self, tokens: Optional[torch.Tensor] = None, *,
-                embeds: Optional[torch.Tensor] = None
+                embeds: Optional[torch.Tensor] = None, remat: bool = False,
+                remat_policy: str = "full"
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Full causal forward: ``(logits [B, S, V] float32, aux losses)``."""
-        x, aux, _ = self._layers(self._embed(tokens, embeds))
+        """Full causal forward: ``(logits [B, S, V] float32, aux losses)``.
+
+        Records for autograd where grad mode is on.  ``remat`` with policy
+        "full" recomputes each entry in the backward; "dots" and
+        "dots_no_batch" save the products and need the sharded substrate's
+        remat policies (slice 4b).
+        """
+        if remat and remat_policy != "full":
+            if remat_policy in ("dots", "dots_no_batch"):
+                raise NotImplementedError(
+                    f"remat policy {remat_policy!r} needs distributed/remat.py's policies, "
+                    "which come with the sharded substrate (slice 4b); use 'full'")
+            raise ValueError(f"unknown remat policy {remat_policy!r}")
+        x, aux, _ = self._layers(self._embed(tokens, embeds), remat=remat)
         return self._head(x), aux
+
+    def loss_fn(self, tokens: Optional[torch.Tensor] = None,
+                labels: Optional[torch.Tensor] = None, *,
+                embeds: Optional[torch.Tensor] = None, remat: bool = False,
+                remat_policy: str = "full", moe_loss_weight: float = 0.01,
+                z_loss_weight: float = 1e-4) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``(loss, metrics)`` as the reference's ``loss_fn``: the mean
+        next-token NLL over every position from a float32 ``log_softmax``
+        (labels default to the tokens shifted left, padded with 0), plus the
+        weighted MoE load-balance and z losses; metrics ``{"ce", **aux}``."""
+        logits, aux = self.forward(tokens, embeds=embeds, remat=remat,
+                                   remat_policy=remat_policy)
+        if labels is None:
+            labels = F.pad(torch.as_tensor(tokens, device=self.device)[:, 1:], (0, 1))
+        labels = torch.as_tensor(labels, device=self.device).long()
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+        ce = nll.sum() / nll.numel()
+        total = (ce + moe_loss_weight * aux["moe_load_balance"]
+                 + z_loss_weight * aux["moe_z"])
+        return total, {"ce": ce, **aux}
 
     # -- serving ----------------------------------------------------------------
 

@@ -521,3 +521,80 @@ def test_gemv_wrappers_refuse_plans_that_do_not_fit(cuda):
     with pytest.raises(ValueError, match="groups"):
         gemv_tiles_cuda(a, x, n_dev=4, my_dev=0,
                         plan=GemvPlan(rows=64, splits=1, slice_k=64, boxes=5))
+
+
+# the rmsnorm backward: the training shapes (gemma3-1b's microbatch of 2 x
+# 1024 tokens at D 1152, xlstm-125m's 8 x 128 at D 768), rows that leave the
+# last CTA short, and float32 at the parity configs' widths
+RMSNORM_BWD_CASES = [((2048, 1152), "bfloat16"), ((1024, 768), "bfloat16"),
+                     ((2, 1024, 1152), "float32"), ((1000, 2560), "bfloat16"),
+                     ((7, 64), "float32"), ((33, 256), "float32"), ((3, 5, 128), "bfloat16"),
+                     ((300, 8192), "float32"), ((17, 16384), "bfloat16")]
+
+
+@pytest.mark.parametrize("shape,dtype", RMSNORM_BWD_CASES)
+def test_rmsnorm_bwd_kernel_matches_plain_and_repeats_its_bits(cuda, shape, dtype):
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_bwd_ref
+
+    dt = DTYPES[dtype]
+    x = _randn(shape, dt, cuda, 20)
+    g = _randn(shape[-1:], dt, cuda, 21) * 0.2
+    dy = _randn(shape, dt, cuda, 22)
+    before = rmsnorm_bwd_cuda.launches
+    dx, dg = rmsnorm_bwd_cuda(x, g, dy)
+    torch.cuda.synchronize()
+    assert rmsnorm_bwd_cuda.launches == before + 1
+    assert dx.dtype == dt and dx.shape == x.shape and dg.dtype == dt and dg.shape == g.shape
+    want_dx, want_dg = rmsnorm_bwd_ref(x.float(), g.float(), dy.float())
+    torch.testing.assert_close(dx.float(), want_dx, **TOL[dtype])
+    torch.testing.assert_close(dg.float(), want_dg, **TOL[dtype])
+    for _ in range(3):
+        again = rmsnorm_bwd_cuda(x, g, dy)
+        assert torch.equal(again[0], dx) and torch.equal(again[1], dg)
+
+
+def test_rmsnorm_autograd_on_the_card_goes_through_both_kernels(cuda):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
+
+    x = _randn((2, 16, 1152), torch.bfloat16, cuda, 23).requires_grad_(True)
+    g = (_randn((1152,), torch.bfloat16, cuda, 24) * 0.2).requires_grad_(True)
+    dy = _randn((2, 16, 1152), torch.bfloat16, cuda, 25)
+    before = (rmsnorm_cuda.launches, rmsnorm_bwd_cuda.launches)
+    y = ops.rmsnorm(x, g)
+    assert y.grad_fn is not None
+    y.backward(dy)
+    assert (rmsnorm_cuda.launches - before[0], rmsnorm_bwd_cuda.launches - before[1]) == (1, 1)
+    want = rmsnorm_bwd_cuda(x.detach(), g.detach(), dy)
+    assert torch.equal(x.grad, want[0]) and torch.equal(g.grad, want[1])
+    with torch.no_grad():  # the serve paths: the forward kernel alone, no graph
+        assert ops.rmsnorm(x, g).grad_fn is None
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "xlstm-125m", "zamba2-2.7b", "minicpm3-4b",
+                                  "olmoe-1b-7b"])
+def test_reduced_model_gradients_on_the_card_match_the_cpu(cuda, arch):
+    """float32: the same ops, sums in other orders (cuBLAS, the kernels);
+    each gradient within 1e-4 of its tensor's largest entry."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
+
+    cfg = reduced(get_config(arch)).with_(param_dtype=torch.float32)
+    gpu = Model(cfg).init(torch.Generator().manual_seed(1))
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 24)))
+    losses = {}
+    before = rmsnorm_bwd_cuda.launches
+    for name, model in (("gpu", gpu), ("cpu", cpu)):
+        model.requires_grad_(True)
+        loss, _ = model.loss_fn(toks.to(model.device))
+        loss.backward()
+        losses[name] = loss.item()
+    assert rmsnorm_bwd_cuda.launches - before == decode_launches(cfg)["rmsnorm"]
+    assert abs(losses["gpu"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
+    grads = dict(cpu.named_parameters())
+    for name, p in gpu.named_parameters():
+        want = grads[name].grad
+        scale = max(want.abs().max().item(), 1e-6)
+        torch.testing.assert_close(p.grad.cpu() / scale, want / scale, rtol=1e-4, atol=1e-4,
+                                   msg=name)

@@ -12,6 +12,7 @@ import torch
 import repro_torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, reduced
+from repro_torch.launch import train as train_cli
 from repro_torch.models import Model
 from repro_torch.serving import ServeConfig, ServeEngine
 
@@ -36,9 +37,13 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env, check=True,
                          capture_output=True, text=True, timeout=120).stdout.split()
     assert out == [str(expected), "[]"]
-    assert expected >= 41  # every module of the slices so far was walked: moe.py and
-    # the ten configs of the attention-family slice, ssm.py and xlstm.py among them
-    assert {"repro_torch.models.ssm", "repro_torch.models.xlstm"} <= {
+    assert expected >= 52  # every module of the slices so far was walked: moe.py and
+    # the ten configs of the attention-family slice, ssm.py and xlstm.py, and the
+    # training slice's optim, data, checkpoint, ft, training and launch.train
+    assert {"repro_torch.models.ssm", "repro_torch.models.xlstm", "repro_torch.optim.adamw",
+            "repro_torch.data.pipeline", "repro_torch.checkpoint.store",
+            "repro_torch.ft.resilience", "repro_torch.training.trainer",
+            "repro_torch.launch.train"} <= {
         m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
 
 
@@ -55,3 +60,5 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     model = Model(cfg, device="cpu")
     assert model.device.type == "cpu"
     assert ServeEngine(model, ServeConfig()).model.embed.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--reduced", "--steps", "1"])

@@ -7,6 +7,12 @@ tolerances: 3e-5 in float32, 3e-2 in bf16 (both sides round the same float32
 inputs to bf16, then compute in float32 and round the output).  The CUDA
 kernels themselves are compared with these plain versions on the card, in
 tests/test_torch_cuda.py.
+
+The rmsnorm backward replaces no Pallas kernel: ``rmsnorm_bwd_ref`` is held
+against ``jax.vjp`` of the function the reference's training differentiates,
+``repro.models.common.rms_norm``, with the same tolerances (in bf16 both
+sides round the float32 gradients once, to bf16), and against autograd of
+``rmsnorm_ref`` in float32.
 """
 
 import jax.numpy as jnp
@@ -14,11 +20,15 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models.common import rms_norm as jrms_norm
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plan
+from repro_torch.kernels.rmsnorm import (RMSNormFunction, rmsnorm_bwd_cuda, rmsnorm_bwd_plan,
+                                         rmsnorm_bwd_ref, rmsnorm_cuda, rmsnorm_plan)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -152,3 +162,102 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
         build.nvcc()
     with pytest.raises(ValueError, match="unknown kernel"):
         build.build(["no_such_kernel"])
+
+
+RMSNORM_BWD_SHAPES = [(4, 128), (2, 33, 256), (1, 7, 64), (16, 1152)]
+
+
+def _rmsnorm_bwd_inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape, np.float32),
+            rng.standard_normal(shape[-1], np.float32) * 0.2,
+            rng.standard_normal(shape, np.float32))
+
+
+@pytest.mark.parametrize("shape", RMSNORM_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rmsnorm_bwd_ref_matches_jax_vjp_of_rms_norm(shape, dtype):
+    x, g, dy = _rmsnorm_bwd_inputs(shape, 5)
+    (jx, tx), (jg, tg), (jdy, tdy) = _pair(x, dtype), _pair(g, dtype), _pair(dy, dtype)
+    _, vjp = jax.vjp(lambda a, b: jrms_norm(a, b, 1e-6), jx, jg)
+    jdx, jdg = vjp(jdy)
+    dx, dg = rmsnorm_bwd_ref(tx, tg, tdy)
+    assert dx.dtype == tx.dtype and dg.dtype == tg.dtype
+    assert dx.shape == shape and dg.shape == shape[-1:]
+    np.testing.assert_allclose(_np(dx), _np(jdx), **_tol(dtype))
+    np.testing.assert_allclose(_np(dg), _np(jdg), **_tol(dtype))
+
+
+@pytest.mark.parametrize("shape", RMSNORM_BWD_SHAPES)
+def test_rmsnorm_bwd_ref_matches_autograd_of_rmsnorm_ref(shape):
+    x, g, dy = (torch.from_numpy(a) for a in _rmsnorm_bwd_inputs(shape, 6))
+    x.requires_grad_(True)
+    g.requires_grad_(True)
+    ref.rmsnorm_ref(x, g).backward(dy)
+    dx, dg = rmsnorm_bwd_ref(x.detach(), g.detach(), dy)
+    np.testing.assert_allclose(_np(dx), _np(x.grad), **_tol("float32"))
+    np.testing.assert_allclose(_np(dg), _np(g.grad), **_tol("float32"))
+
+
+def test_rmsnorm_function_wiring_with_the_plain_versions():
+    """The autograd function with the plain forward and backward plugged in:
+    one forward and one backward call each, the backward's own results as
+    the gradients, none for an input that does not require one."""
+    calls = []
+
+    def fwd(x, g, eps):
+        calls.append("fwd")
+        return ref.rmsnorm_ref(x, g, eps)
+
+    def bwd(x, g, dy, eps):
+        calls.append(("bwd", eps, dy.is_contiguous()))
+        return rmsnorm_bwd_ref(x, g, dy, eps)
+
+    x, g, dy = (torch.from_numpy(a) for a in _rmsnorm_bwd_inputs((3, 5, 64), 7))
+    x.requires_grad_(True)
+    g.requires_grad_(True)
+    y = RMSNormFunction.apply(x, g, 1e-5, (fwd, bwd))
+    assert torch.equal(y, ref.rmsnorm_ref(x.detach(), g.detach(), 1e-5))
+    dy_t = dy.transpose(0, 1).contiguous().transpose(0, 1)  # a strided gradient
+    y.backward(dy_t)
+    want = rmsnorm_bwd_ref(x.detach(), g.detach(), dy, 1e-5)
+    assert torch.equal(x.grad, want[0]) and torch.equal(g.grad, want[1])
+    assert calls == ["fwd", ("bwd", 1e-5, True)]
+
+    x2 = x.detach().clone().requires_grad_(True)
+    RMSNormFunction.apply(x2, g.detach(), 1e-6, (fwd, bwd)).sum().backward()
+    assert x2.grad is not None
+    # the shared gamma of zamba2's block: gradients of its uses add
+    g2 = g.detach().clone().requires_grad_(True)
+    xs = x.detach()
+    (RMSNormFunction.apply(xs, g2, 1e-6, (fwd, bwd)).sum()
+     + RMSNormFunction.apply(xs * 2, g2, 1e-6, (fwd, bwd)).sum()).backward()
+    ones = torch.ones_like(xs)
+    np.testing.assert_allclose(
+        _np(g2.grad), _np(rmsnorm_bwd_ref(xs, g.detach(), ones)[1]
+                          + rmsnorm_bwd_ref(xs * 2, g.detach(), ones)[1]), rtol=1e-6, atol=1e-6)
+
+
+def test_cpu_rmsnorm_is_differentiable_and_launches_nothing():
+    x, g, dy = (torch.from_numpy(a) for a in _rmsnorm_bwd_inputs((4, 64), 8))
+    x.requires_grad_(True)
+    g.requires_grad_(True)
+    before = (rmsnorm_cuda.launches, rmsnorm_bwd_cuda.launches)
+    ops.rmsnorm(x, g).backward(dy)
+    dx, dg = rmsnorm_bwd_ref(x.detach(), g.detach(), dy)
+    np.testing.assert_allclose(_np(x.grad), _np(dx), **_tol("float32"))
+    np.testing.assert_allclose(_np(g.grad), _np(dg), **_tol("float32"))
+    assert (rmsnorm_cuda.launches, rmsnorm_bwd_cuda.launches) == before
+
+
+@pytest.mark.parametrize("rows,sms,per_cta", [(2048, 132, 8), (1024, 132, 4), (4, 132, 1),
+                                              (264, 132, 1), (265, 132, 2), (1, 1, 1)])
+def test_rmsnorm_bwd_plan_spreads_rows_over_two_ctas_an_sm(rows, sms, per_cta):
+    assert rmsnorm_bwd_plan(rows, sms) == per_cta
+    assert -(-rows // per_cta) <= 2 * sms
+
+
+def test_rmsnorm_bwd_cuda_refuses_cpu_tensors():
+    x = torch.zeros(2, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm_bwd_cuda(x, torch.zeros(64), torch.zeros(2, 64))
