@@ -69,7 +69,25 @@ Phases, each printing one JSON line:
            and olmoe-1b-7b in float32 on the card and the CPU: the loss and
            every gradient, and the parameters after 3 AdamW steps; then a
            checkpoint/restart drill on the card (a failure before step 4,
-           restored bit for bit).
+           restored bit for bit);
+  sharded  gemma3-1b at full width and depth on a (2, 2) mesh: 4 ranks, one
+           process each, sharing the card in a gloo group that exchanges
+           through the host; the train phase's run for 3 steps from the same
+           seed and batches: each step's loss within 0.05 of the one-rank
+           run's, the first step's gradient norm within 1%, the later ones
+           beside a one-rank control cut into 4 microbatches; exact rmsnorm
+           launches a step and rank (106 / 106); per rank the peak memory
+           beside its bytes of parameters, gradient buffers and ZeRO-1 state,
+           and the bytes it hands each collective a step;
+  moe_ep   olmoe-1b-7b's MoE layer at full width expert-parallel on (1, 4),
+           float32: the scatter path (B 4 x S 512) and the gather path (B 4 x
+           S 1) against moe_apply on one rank, outputs and gradients; the
+           dropped pairs at capacity 1.25 and 0.25 against a plain count;
+  pipeline pipeline_apply over 4 ranks (8 layers at d 2048, 8 microbatches)
+           against the layers run in sequence;
+  remat    gemma3-1b's one-rank step at full width under "none", "full",
+           "dots" and "dots_no_batch": exact rmsnorm launches (210 / 106 a
+           step under remat), ms a step, peak memory, losses equal.
 The kernels phase also holds the rmsnorm backward (the port's own kernel: the
 reference differentiates rms_norm through XLA) against its plain version at
 the training shapes, bits repeating over 5 calls and a bf16 dgamma
@@ -199,6 +217,50 @@ TRAIN_PARITY_ARCHS = ("gemma3-1b", "xlstm-125m", "zamba2-2.7b", "minicpm3-4b", "
 TRAIN_PARITY_TOL = 1e-4  # of each gradient tensor's largest entry; of the loss, relative
 G_NOISE = 1e-5  # a nonzero float32 gradient below this is near-cancelling noise (AdamW)
 RMSNORM_BWD_SHAPES = ((2048, 1152), (1024, 768))  # the two training paths' rows x D
+# the sharded substrate (slice 4b): gemma3-1b at full width and depth on a
+# (2, 2) mesh of 4 ranks sharing the card (a gloo group exchanging through the
+# host), the train phase's run (TRAIN_RUNS) for SHARDED_STEPS steps from the
+# same seed and batches: each step's loss within 0.05 of the one-rank run's
+# (the reference's bf16 cross-mesh bound, tests/test_distributed.py), and the
+# first step's gradient norm (both runs at the same weights) within 1%.  The
+# later steps' norms are printed beside a control: the one-rank run with its
+# batch cut into 4 microbatches instead of 2, the same steps with only their
+# bf16 roundings moved.  This run is chaotic in bf16 by its third step (lr
+# 3e-3; the norm jumps 5.4 -> 12.4): any such perturbation, sharded or not,
+# moves every tensor's gradient norm there by several percent alike
+# (tools/sharded_divergence.py)
+SHARDED_MESH = {"data": 2, "model": 2}
+SHARDED_CONTROL_MICROBATCHES = 4
+SHARDED_STEPS = 3
+SHARDED_LOSS_TOL = 0.05
+SHARDED_GNORM_RTOL = 0.01
+# olmoe-1b-7b's MoE layer at full width (64 experts top-8, d 2048, ff 1024)
+# expert-parallel on (1, 4), float32: the scatter path at B 4 x S 512, the
+# gather path at B 4 x S 1, against moe_apply on one rank (the reference
+# test's bounds); at capacity factor 4 nothing drops, at the config's 1.25 and
+# at 0.25 (the reference test's, where pairs do drop) the dropped pairs must
+# equal a plain count from the routing
+MOE_EP_SHAPES = {"scatter": (4, 512), "gather": (4, 1)}
+MOE_EP_CAPACITY = {"config": None, "tight": 0.25}  # beside the dropless run
+MOE_EP_TOL = dict(rtol=1e-4, atol=1e-4)
+MOE_EP_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
+# pipeline_apply over 4 ranks: 8 tanh layers at d 2048, 8 microbatches of 16
+# rows, float32, against the layers run in sequence on one rank: the output
+# against the whole batch's, the gradients against the microbatches' summed
+# in the pipeline's order (last microbatch first); summed over the whole
+# batch at once instead, float32 sums of 128 rows differ by about 1e-5 of a
+# layer's largest gradient, which the line reports
+PIPE_LAYERS, PIPE_D, PIPE_MICRO, PIPE_MB = 8, 2048, 8, 16
+PIPE_TOL = dict(rtol=1e-5, atol=1e-5)
+# the remat policies on gemma3-1b's one-rank step (TRAIN_RUNS' batch): the
+# forward of each block runs again in the backward, so rmsnorm's forward
+# launches a step are 106 + 2 microbatches x 26 blocks x 2 norms = 210 under
+# every policy but "none" (the final norm is outside the blocks); the backward
+# stays 106
+REMAT_POLICIES = ("none", "full", "dots", "dots_no_batch")
+REMAT_STEPS = 2
+REMAT_LAUNCHES_PER_STEP = {p: {"rmsnorm": 106 if p == "none" else 210, "rmsnorm_bwd": 106}
+                           for p in REMAT_POLICIES}
 
 # torch.profiler on the card drops activity records now and then, in bursts
 # that can span several sessions in a row (a session may lose a few of its
@@ -1586,6 +1648,7 @@ def phase_train(card: str, arch: str) -> dict:
            "ms_per_step_median_2_on": median_ms,
            "tokens_per_s": tokens_per_step / (median_ms * 1e-3),
            "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+           "grad_norms": [h["grad_norm"] for h in history],
            "grad_norm_profiled_step": grad_norm,
            "launches": launches, "launches_per_step": per_step, "expected_launches": expect,
            "peak_mem_bytes": peak, "allocated_at_start_bytes": allocated_at_start,
@@ -1734,6 +1797,415 @@ def phase_train_parity() -> dict:
             "g_noise": G_NOISE, "configs": out, "drill": drill}
 
 
+def _sharded_rank(rank: int, world: int, arch: str) -> dict:
+    """One rank of the sharded phase, in its own spawned process: ``arch``
+    at full width and depth on SHARDED_MESH through Trainer, its parameters
+    drawn whole from the train phase's seed and sliced, the train phase's
+    batches.  The kernels' counts and the exchanged bytes are set to 0 just
+    before the steps and read just after."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset, prefetch
+    from repro_torch.distributed.collectives import EXCHANGED, exchange_device
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import TrainConfig, Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    batch, seq, mb, steps, lr, warmup = TRAIN_RUNS[arch]
+    mesh = Mesh(SHARDED_MESH).bind()
+    t0 = time.perf_counter()
+    model = Model(get_config(arch))
+    tcfg = TrainConfig(microbatches=mb, optim=AdamWConfig(lr=lr, warmup_steps=warmup,
+                                                          total_steps=steps))
+    trainer = Trainer(model, tcfg, mesh=mesh)
+    trainer.init_state(torch.Generator(device=dev).manual_seed(0))
+    data = SyntheticLMDataset(DataConfig(vocab=TRAIN_DATA_VOCAB, seq_len=seq,
+                                         global_batch=batch))
+    batches = prefetch(iter(data))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = dict(model.named_parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    n_local = sum(p.numel() for p in params.values())
+    state_bytes = sum(t.numel() * t.element_size() for key in ("mu", "nu", "master")
+                      for t in trainer.opt_state[key].values())
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    rmsnorm_cuda.launches = rmsnorm_bwd_cuda.launches = 0
+    EXCHANGED.clear()
+    history = trainer.run(batches, SHARDED_STEPS, log_every=0)
+    torch.cuda.synchronize()
+    launches = {"rmsnorm": rmsnorm_cuda.launches, "rmsnorm_bwd": rmsnorm_bwd_cuda.launches}
+    exchanged = {k: v / SHARDED_STEPS for k, v in EXCHANGED.items()}
+    return {"rank": rank, "coord": mesh.coord, "backend": str(dist.get_backend()),
+            "exchange_device": str(exchange_device(params["embed"])),
+            "init_s": init_s, "history": history, "launches": launches,
+            "bytes_exchanged_per_step": exchanged,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "param_bytes": param_bytes,
+            # .grad in the param dtype and the float32 microbatch buffers
+            "grad_buffer_bytes": param_bytes + 4 * n_local,
+            "zero1_state_bytes": state_bytes,
+            "unpartitioned": trainer.step_fn.unpartitioned,
+            "fallbacks": trainer.fallbacks}
+
+
+def phase_sharded(card: str, single: dict) -> dict:
+    """gemma3-1b at full width and depth on a (2, 2) mesh: 4 ranks, one
+    process each, sharing the card; each step's loss and gradient norm held
+    to the one-rank train phase's (``single``)."""
+    from repro_torch.distributed import run_world
+
+    arch = TRAIN_MAIN
+    t0 = time.perf_counter()
+    world = SHARDED_MESH["data"] * SHARDED_MESH["model"]
+    ranks = run_world(_sharded_rank, world, arch, timeout=900)
+    seconds = time.perf_counter() - t0
+    control = _one_rank_control(arch)
+    per_step = TRAIN_LAUNCHES_PER_STEP[arch]
+    expect = {k: n * SHARDED_STEPS for k, n in per_step.items()}
+    want_loss = single["losses"][:SHARDED_STEPS]
+    want_gnorm = single["grad_norms"][:SHARDED_STEPS]
+    control_dev = [(a - b) / b for a, b in zip(control["grad_norms"], want_gnorm)]
+    for r in ranks:
+        if r["launches"] != expect:
+            raise AssertionError(f"rank {r['rank']}: rmsnorm launches {r['launches']} != "
+                                 f"{expect}")
+        losses = [h["loss"] for h in r["history"]]
+        gnorm_dev = [(h["grad_norm"] - b) / b for h, b in zip(r["history"], want_gnorm)]
+        loss_err = max(abs(a - b) for a, b in zip(losses, want_loss))
+        if not loss_err < SHARDED_LOSS_TOL or not abs(gnorm_dev[0]) < SHARDED_GNORM_RTOL:
+            raise AssertionError(f"rank {r['rank']}: losses {losses} against {want_loss}, "
+                                 f"grad norms moved {gnorm_dev}")
+        r.update(loss_max_abs_err=loss_err, grad_norm_rel_dev=gnorm_dev)
+    if len({tuple(h["loss"] for h in r["history"]) for r in ranks}) != 1:
+        raise AssertionError("the ranks disagree on the loss")
+    step_ms = [[h["dt"] * 1e3 for h in r["history"]] for r in ranks]
+    return {"phase": "sharded", "arch": arch, "mesh": SHARDED_MESH, "ranks": world,
+            "exchange": f"{ranks[0]['backend']} "
+                        + ("via host" if ranks[0]["exchange_device"] == "cpu" else "on card"),
+            "note": "4 ranks are 4 processes sharing one card; the walls measure the "
+                    "host exchange, not a speed",
+            "steps": SHARDED_STEPS, "losses": [h["loss"] for h in ranks[0]["history"]],
+            "single_rank_losses": want_loss,
+            "grad_norms": [h["grad_norm"] for h in ranks[0]["history"]],
+            "single_rank_grad_norms": want_gnorm,
+            "control": {"microbatches": SHARDED_CONTROL_MICROBATCHES, **control,
+                        "grad_norm_rel_dev": control_dev},
+            "loss_tolerance": SHARDED_LOSS_TOL,
+            "grad_norm_rtol_first_step": SHARDED_GNORM_RTOL,
+            "launches": {k: sum(r["launches"][k] for r in ranks) for k in per_step},
+            "launches_per_step_and_rank": per_step,
+            "step_ms_rank0": step_ms[0],
+            "ms_per_step_median_2_on": float(np.median([ms[1:] for ms in step_ms])),
+            "per_rank": [{key: r[key] for key in (
+                "rank", "coord", "init_s", "peak_mem_bytes", "param_bytes",
+                "grad_buffer_bytes", "zero1_state_bytes", "bytes_exchanged_per_step",
+                "launches", "loss_max_abs_err", "grad_norm_rel_dev")}
+                for r in ranks],
+            "unpartitioned": ranks[0]["unpartitioned"], "fallbacks": ranks[0]["fallbacks"],
+            "seconds": seconds, "card": card}
+
+
+def _one_rank_control(arch: str) -> dict:
+    """The one-rank run of the sharded phase's steps with the batch cut into
+    SHARDED_CONTROL_MICROBATCHES microbatches: losses and gradient norms."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import TrainConfig, Trainer
+
+    batch, seq, _, steps, lr, warmup = TRAIN_RUNS[arch]
+    torch.cuda.empty_cache()
+    model = Model(get_config(arch))
+    trainer = Trainer(model, TrainConfig(microbatches=SHARDED_CONTROL_MICROBATCHES,
+                                         optim=AdamWConfig(lr=lr, warmup_steps=warmup,
+                                                           total_steps=steps)))
+    trainer.init_state(torch.Generator(device="cuda").manual_seed(0))
+    data = SyntheticLMDataset(DataConfig(vocab=TRAIN_DATA_VOCAB, seq_len=seq, global_batch=batch))
+    history = trainer.run(iter(data), SHARDED_STEPS, log_every=0)
+    del trainer, model
+    torch.cuda.empty_cache()
+    return {"losses": [h["loss"] for h in history],
+            "grad_norms": [h["grad_norm"] for h in history]}
+
+
+def _slices(x: torch.Tensor, n: int) -> list:
+    """The tokens of ``x [B, S, d]`` cut in n consecutive slices ``[1, T / n, d]``
+    where there are enough to cut (the scatter path's), else x whole."""
+    T, d = x.shape[0] * x.shape[1], x.shape[2]
+    if T % n or T // n < 8:
+        return [x]
+    return list(x.reshape(n, 1, T // n, d))
+
+
+def _plain_drops(cfg, idx: torch.Tensor, msz: int, T: int) -> float:
+    """The scatter path's dropped pairs from the routing, counted plainly: the
+    mean over the model ranks of each token slice's pairs past the capacity of
+    their destination."""
+    import math
+
+    k, E_loc, Tm = cfg.experts_per_token, cfg.n_experts // msz, T // msz
+    C = int(math.ceil(Tm * k / msz * cfg.capacity_factor))
+    drops = 0
+    for m in range(msz):
+        dest = idx[m * Tm:(m + 1) * Tm].reshape(-1) // E_loc
+        counts = torch.bincount(dest, minlength=msz)
+        drops += int(torch.clamp(counts - C, min=0).sum())
+    return drops / msz
+
+
+def _substrate_rank(rank: int, world: int) -> dict:
+    """One rank of the moe_ep and pipeline phases, in its own spawned process."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import pipeline_apply, stack_stage_params
+    from repro_torch.distributed.collectives import EXCHANGED, raw_all_gather
+    from repro_torch.distributed.sharding import shard_tensor
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.common import materialize
+    from repro_torch.models.moe import moe_apply, moe_specs, route
+    from repro_torch.models.moe_ep import ep_specs, moe_apply_ep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    out = {"rank": rank}
+
+    # -- expert-parallel MoE ---------------------------------------------------
+    mesh = Mesh({"data": 1, "model": world}).bind()
+    base = get_config("olmoe-1b-7b").with_(param_dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    full = materialize(moe_specs(base), gen, dev)
+    out["moe_ep"] = {}
+    for path, (B, S) in MOE_EP_SHAPES.items():
+        x = torch.randn(B, S, base.d_model, generator=gen, device=dev) * 0.5
+        res = {"x": [B, S, base.d_model]}
+        runs = {"dropless": float(world),
+                **{k: v or base.capacity_factor for k, v in MOE_EP_CAPACITY.items()}}
+        for tag, cf in runs.items():
+            cfg = base.with_(capacity_factor=cf)
+            specs = ep_specs(cfg, mesh)
+            p = {k: shard_tensor(v, specs[k], mesh).clone().requires_grad_()
+                 for k, v in full.items()}
+            EXCHANGED.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, aux = moe_apply_ep(cfg, p, x, mesh)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            res[f"{tag}_capacity_factor"] = cf
+            res[f"{tag}_ms"] = ms
+            res[f"{tag}_bytes_exchanged"] = dict(EXCHANGED)
+            res[f"{tag}_dropped"] = float(aux["moe_dropped"])
+            if tag == "dropless":
+                # moe_apply on the same token slices the ranks route, so a
+                # near tie sees the same router product on both sides
+                pl = {k: v.detach().clone().requires_grad_() for k, v in full.items()}
+                y_ref = torch.cat([moe_apply(cfg, pl, xs)[0] for xs in _slices(x, world)])
+                y_ref = y_ref.reshape(x.shape)
+                with torch.no_grad():
+                    _, aux_ref, _ = moe_apply(cfg, full, x)
+                err = ((y - y_ref).abs() - MOE_EP_TOL["rtol"] * y_ref.abs()).max().item()
+                res.update(max_abs_err=(y - y_ref).abs().max().item(),
+                           within_tol=err <= MOE_EP_TOL["atol"],
+                           aux_rel_err=max(abs(aux[k].item() - aux_ref[k].item())
+                                           / abs(aux_ref[k].item())
+                                           for k in ("moe_load_balance", "moe_z")))
+                (y ** 2).sum().backward()
+                (y_ref ** 2).sum().backward()
+                worst = 0.0
+                for k, v in p.items():
+                    want = shard_tensor(pl[k].grad, specs[k], mesh)
+                    lim = MOE_EP_GRAD_TOL["atol"] + MOE_EP_GRAD_TOL["rtol"] * want.abs()
+                    worst = max(worst, ((v.grad - want).abs() / lim).max().item())
+                res["grad_worst_ratio"] = worst
+                del pl, y_ref
+            elif path == "scatter":
+                with torch.no_grad():
+                    idx = torch.cat([route(cfg, full, xs.reshape(-1, cfg.d_model), aux=False)[0]
+                                     for xs in _slices(x, world)])
+                res[f"{tag}_plain_dropped"] = _plain_drops(cfg, idx, world, B * S)
+            del p, y
+        out["moe_ep"][path] = res
+    del full
+    torch.cuda.empty_cache()
+
+    # -- the GPipe pipeline -------------------------------------------------------
+    pipe = Mesh({"pipe": world}).bind()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    W = torch.randn(PIPE_LAYERS, PIPE_D, PIPE_D, generator=gen, device=dev) / PIPE_D ** 0.5
+    b = torch.randn(PIPE_LAYERS, PIPE_D, generator=gen, device=dev) * 0.1
+    x = torch.randn(PIPE_MICRO * PIPE_MB, PIPE_D, generator=gen, device=dev)
+
+    def layer(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    local = {k: shard_tensor(v, ("pipe",), pipe).clone().requires_grad_()
+             for k, v in stack_stage_params({"w": W, "b": b}, world).items()}
+    apply = pipeline_apply(pipe, layer, n_micro=PIPE_MICRO)
+    (apply(local, x) ** 2).sum().backward()  # a first run: the exchanges' set-up
+    for t in local.values():
+        t.grad = None
+    EXCHANGED.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = apply(local, x)
+    (y ** 2).sum().backward()
+    torch.cuda.synchronize()
+    pipe_ms = (time.perf_counter() - t0) * 1e3
+    exchanged = dict(EXCHANGED)
+    Wr, br = W.clone().requires_grad_(), b.clone().requires_grad_()
+    t0 = time.perf_counter()
+    ref = x
+    for i in range(PIPE_LAYERS):
+        ref = layer({"w": Wr[i], "b": br[i]}, ref)
+    (ref ** 2).sum().backward()
+    torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    whole = {"w": Wr.grad.clone(), "b": br.grad.clone()}
+    summed = {"w": torch.zeros_like(W), "b": torch.zeros_like(b)}
+    for m in reversed(range(PIPE_MICRO)):  # the pipeline's order of the sums
+        Wr.grad = br.grad = None
+        h = x[m * PIPE_MB:(m + 1) * PIPE_MB]
+        for i in range(PIPE_LAYERS):
+            h = layer({"w": Wr[i], "b": br[i]}, h)
+        (h ** 2).sum().backward()
+        summed["w"] += Wr.grad
+        summed["b"] += br.grad
+    got = {"w": raw_all_gather(local["w"].grad, pipe, "pipe", 0).reshape(W.shape),
+           "b": raw_all_gather(local["b"].grad, pipe, "pipe", 0).reshape(b.shape)}
+
+    def ratio(got, want):
+        return ((got - want).abs() / (PIPE_TOL["atol"] + PIPE_TOL["rtol"] * want.abs())
+                ).max().item()
+
+    def of_largest(got, want):  # each layer's worst difference over 1e-5 of its largest
+        return ((got - want).abs().flatten(1).amax(1)
+                / (1e-5 * want.abs().flatten(1).amax(1))).max().item()
+
+    out["pipeline"] = {"forward_worst_ratio": ratio(y.detach(), ref.detach()),
+                       "grad_worst_ratio": max(ratio(got[k], summed[k]) for k in got),
+                       "grad_vs_whole_batch_of_largest": max(of_largest(got[k], whole[k])
+                                                             for k in got),
+                       "wall_ms": pipe_ms, "sequential_wall_ms": seq_ms,
+                       "bytes_exchanged": exchanged}
+    return out
+
+
+def phase_moe_ep_and_pipeline(card: str) -> tuple:
+    """olmoe-1b-7b's MoE layer expert-parallel on (1, 4), and pipeline_apply
+    over 4 stages, on one world of 4 ranks sharing the card."""
+    from repro_torch.distributed import bubble_fraction, run_world
+
+    t0 = time.perf_counter()
+    ranks = run_world(_substrate_rank, RANKS, timeout=600)
+    seconds = time.perf_counter() - t0
+    for r in ranks:
+        for path, res in r["moe_ep"].items():
+            if not (res["within_tol"] and res["grad_worst_ratio"] <= 1.0
+                    and res["dropless_dropped"] == 0 and res["aux_rel_err"] < 1e-4):
+                raise AssertionError(f"rank {r['rank']} moe_ep {path}: {res}")
+            for tag in MOE_EP_CAPACITY:
+                want = res.get(f"{tag}_plain_dropped", 0.0)  # the gather path drops none
+                if res[f"{tag}_dropped"] != want:
+                    raise AssertionError(f"rank {r['rank']} {path}: dropped "
+                                         f"{res[f'{tag}_dropped']} != plain count {want}")
+        if not r["moe_ep"]["scatter"]["tight_dropped"] > 0:
+            raise AssertionError(f"rank {r['rank']}: capacity 0.25 dropped nothing")
+        pipe = r["pipeline"]
+        if max(pipe["forward_worst_ratio"], pipe["grad_worst_ratio"]) > 1.0:
+            raise AssertionError(f"rank {r['rank']} pipeline: {pipe}")
+    moe = {"phase": "moe_ep", "arch": "olmoe-1b-7b", "layer": "one MoE layer, full width",
+           "mesh": {"data": 1, "model": RANKS}, "dtype": "float32", "tolerance": MOE_EP_TOL,
+           "grad_tolerance": MOE_EP_GRAD_TOL,
+           "paths": {path: {**ranks[0]["moe_ep"][path],
+                            "max_abs_err_all_ranks": max(r["moe_ep"][path]["max_abs_err"]
+                                                         for r in ranks),
+                            "grad_worst_ratio_all_ranks": max(
+                                r["moe_ep"][path]["grad_worst_ratio"] for r in ranks)}
+                     for path in MOE_EP_SHAPES},
+           "seconds_with_pipeline": seconds, "card": card}
+    pipe = {"phase": "pipeline", "stages": RANKS, "layers": PIPE_LAYERS, "d": PIPE_D,
+            "n_micro": PIPE_MICRO, "microbatch_rows": PIPE_MB, "dtype": "float32",
+            "tolerance": PIPE_TOL, "bubble_fraction": bubble_fraction(RANKS, PIPE_MICRO),
+            "forward_worst_ratio": max(r["pipeline"]["forward_worst_ratio"] for r in ranks),
+            "grad_worst_ratio": max(r["pipeline"]["grad_worst_ratio"] for r in ranks),
+            "grad_vs_whole_batch_of_largest": max(
+                r["pipeline"]["grad_vs_whole_batch_of_largest"] for r in ranks),
+            "per_rank": [{"rank": r["rank"], **{k: r["pipeline"][k] for k in (
+                "wall_ms", "sequential_wall_ms", "bytes_exchanged")}} for r in ranks],
+            "note": "walls with the exchange through the host; the sequential stack is one "
+                    "rank's reference",
+            "card": card}
+    return moe, pipe
+
+
+def phase_remat(card: str) -> dict:
+    """gemma3-1b's one-rank train step at full width under each remat policy,
+    from the same seed and batches: exact rmsnorm launches a step, ms a step,
+    peak memory, and the losses against "none"'s."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import TrainConfig, build_train_step
+
+    batch, seq, mb, _, lr, warmup = TRAIN_RUNS[TRAIN_MAIN]
+    dev = torch.device("cuda")
+    data = iter(SyntheticLMDataset(DataConfig(vocab=TRAIN_DATA_VOCAB, seq_len=seq,
+                                              global_batch=batch)))
+    batches = [next(data) for _ in range(REMAT_STEPS)]
+    out = {}
+    for policy in REMAT_POLICIES:
+        torch.cuda.empty_cache()
+        model = Model(get_config(TRAIN_MAIN)).init(torch.Generator(device=dev).manual_seed(0))
+        tcfg = TrainConfig(microbatches=mb, remat_policy=policy,
+                           optim=AdamWConfig(lr=lr, warmup_steps=warmup,
+                                             total_steps=TRAIN_RUNS[TRAIN_MAIN][3]))
+        step = build_train_step(model, tcfg)
+        state = step.init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rmsnorm_cuda.launches = rmsnorm_bwd_cuda.launches = 0
+        losses, ms = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            state, metrics = step(state, b["tokens"], b["labels"])
+            losses.append(float(metrics["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {"rmsnorm": rmsnorm_cuda.launches, "rmsnorm_bwd": rmsnorm_bwd_cuda.launches}
+        expect = {k: n * REMAT_STEPS for k, n in REMAT_LAUNCHES_PER_STEP[policy].items()}
+        if launches != expect:
+            raise AssertionError(f"remat {policy}: launches {launches} != {expect}")
+        out[policy] = {"losses": losses, "step_ms": ms,
+                       "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                       "launches": launches,
+                       "launches_per_step": REMAT_LAUNCHES_PER_STEP[policy]}
+        del model, step, state
+    base = out["none"]["losses"]
+    for policy, res in out.items():
+        res["loss_rel_err_vs_none"] = [abs(a - b) / abs(b) for a, b in zip(res["losses"], base)]
+        # the first step's forward is the same computation under every policy
+        if res["losses"][0] != base[0] or max(res["loss_rel_err_vs_none"]) > 1e-4:
+            raise AssertionError(f"remat {policy}: losses {res['losses']} against none's {base}")
+    torch.cuda.empty_cache()
+    return {"phase": "remat", "arch": TRAIN_MAIN, "batch": batch, "seq": seq,
+            "microbatches": mb, "steps": REMAT_STEPS, "policies": out, "card": card}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1771,6 +2243,12 @@ def main() -> int:
     done("parity", phase_parity())
     trains = {arch: done(f"{arch} train", phase_train(card, arch)) for arch in TRAIN_RUNS}
     done("train_parity", phase_train_parity())
+    torch.cuda.empty_cache()
+    sharded = done("sharded", phase_sharded(card, trains[TRAIN_MAIN]))
+    moe_ep, pipeline = phase_moe_ep_and_pipeline(card)
+    emit(moe_ep)
+    done("moe_ep and pipeline", pipeline)
+    remat = done("remat", phase_remat(card))
     emit({"phase": "timing", "seconds_at_end_of": ended})
 
     def launches_and_device_ms(name):
@@ -1793,6 +2271,10 @@ def main() -> int:
                  if name in SERVE_KERNELS}
         paths.update({f"{a} train": trains[a]["launches"][name] for a in trains
                       if name in trains[a]["launches"]})
+        if name in sharded["launches"]:
+            paths[f"{TRAIN_MAIN} sharded train"] = sharded["launches"][name]
+            paths.update({f"{TRAIN_MAIN} remat {p} train": r["launches"][name]
+                          for p, r in remat["policies"].items()})
         return {"launches_by_path": paths} if paths else {}
 
     emit({"kernels": [

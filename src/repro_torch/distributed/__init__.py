@@ -1,7 +1,8 @@
-"""Collectives on ``torch.distributed`` process groups (port of ``repro.distributed``).
+"""Distribution substrate on ``torch.distributed`` (port of ``repro.distributed``):
+sharding rules, collectives, ZeRO-1, remat policies and the GPipe pipeline.
 
-Only the collectives of the fused GEMV+AllReduce path are ported so far;
-``world.run_world`` spawns a local gloo world to run them in.
+``world.run_world`` spawns a local world to run them in; ``launch/mesh.py``
+holds the meshes they take.
 """
 
 from .collectives import (
@@ -11,7 +12,20 @@ from .collectives import (
     psum_matmul,
     ring_allreduce,
 )
+from .pipeline import bubble_fraction, pipeline_apply, stack_stage_params
+from .remat import POLICIES, get_policy, maybe_remat
+from .sharding import (
+    DEFAULT_RULES,
+    ShardingRules,
+    batch_spec,
+    constrain,
+    gather_params,
+    param_shardings,
+    resolve_spec,
+    shard_params,
+)
 from .world import run_world
+from .zero import zero1_from_params, zero1_shardings, zero1_spec
 
 __all__ = [
     "psum_matmul",
@@ -20,4 +34,9 @@ __all__ = [
     "compressed_psum",
     "overlap_grad_allreduce",
     "run_world",
+    "DEFAULT_RULES", "ShardingRules", "constrain", "param_shardings",
+    "resolve_spec", "batch_spec", "shard_params", "gather_params",
+    "zero1_shardings", "zero1_spec", "zero1_from_params",
+    "POLICIES", "get_policy", "maybe_remat",
+    "bubble_fraction", "pipeline_apply", "stack_stage_params",
 ]

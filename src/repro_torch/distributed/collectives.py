@@ -18,10 +18,22 @@ host tensors, so for a gloo group each exchanged tensor is copied to the host
 and the result back to the tensor's device, explicitly; any other backend
 exchanges on the tensor's own device.  The arithmetic (the products and the
 ring's additions) always runs on the tensors' device.
+
+The sharded substrate's exchanges follow the same rule.  They take a bound
+mesh (``launch/mesh.py``) and the axes to exchange over, and do nothing where
+this rank is alone along them.  The differentiable ones are the
+tensor-parallel regions' pairs, each the other's transpose:
+:func:`copy_in` (identity; backward all-reduce) at the entry of a region
+where each rank computes a part, :func:`reduce_out` (all-reduce; backward
+identity) at its exit, :func:`gather` (all-gather; backward this rank's
+slice) and :func:`split` (this rank's slice; backward all-gather), and
+:func:`all_to_all` (backward: the exchange back).  ``EXCHANGED`` adds up, by
+collective, the bytes of the buffers this rank hands to them.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Callable
 
 import torch
@@ -35,7 +47,21 @@ __all__ = [
     "ring_allreduce",
     "compressed_psum",
     "overlap_grad_allreduce",
+    "copy_in",
+    "reduce_out",
+    "gather",
+    "split",
+    "all_to_all",
+    "raw_all_reduce",
+    "raw_all_gather",
+    "EXCHANGED",
 ]
+
+EXCHANGED: Counter = Counter()  # bytes handed to each collective by this rank
+
+
+def _count(name: str, t: torch.Tensor) -> None:
+    EXCHANGED[name] += t.numel() * t.element_size()
 
 
 def exchange_device(t: torch.Tensor, group=None) -> torch.device:
@@ -50,6 +76,7 @@ def _peer(group, group_rank: int) -> int:
 
 def _all_reduce(t: torch.Tensor, group=None, op=dist.ReduceOp.SUM) -> torch.Tensor:
     buf = t.detach().to(exchange_device(t, group), copy=True)
+    _count("all_reduce", buf)
     dist.all_reduce(buf, op=op, group=group)
     return buf.to(t.device)
 
@@ -57,19 +84,32 @@ def _all_reduce(t: torch.Tensor, group=None, op=dist.ReduceOp.SUM) -> torch.Tens
 def _all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's ``t`` stacked in rank order: ``[world, *t.shape]``."""
     src = t.detach().to(exchange_device(t, group)).contiguous()
+    _count("all_gather", src)
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
     return torch.stack(parts).to(t.device)
 
 
-def _ring_shift(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Send ``t`` to rank + 1 and return what rank - 1 sent (``ppermute`` i -> i+1)."""
+def _all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Chunk i of ``t [world, ...]`` goes to rank i; chunk i of the result
+    came from rank i (``all_to_all`` with split and concat axis 0)."""
+    src = t.detach().to(exchange_device(t, group)).contiguous()
+    _count("all_to_all", src)
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return out.to(t.device)
+
+
+def _ring_shift(t: torch.Tensor, group=None, offset: int = 1) -> torch.Tensor:
+    """Send ``t`` to rank + offset and return what rank - offset sent
+    (``ppermute`` i -> i+1 for the offset 1; -1 is its reverse)."""
     rank, n = dist.get_rank(group), dist.get_world_size(group)
     send = t.detach().to(exchange_device(t, group)).contiguous()
+    _count("ring_shift", send)
     recv = torch.empty_like(send)
     reqs = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, send, _peer(group, (rank + 1) % n), group),
-        dist.P2POp(dist.irecv, recv, _peer(group, (rank - 1) % n), group),
+        dist.P2POp(dist.isend, send, _peer(group, (rank + offset) % n), group),
+        dist.P2POp(dist.irecv, recv, _peer(group, (rank - offset) % n), group),
     ])
     for req in reqs:
         req.wait()
@@ -154,3 +194,120 @@ def overlap_grad_allreduce(grads, group=None, *, compress: bool = False):
     if compress:
         return _tree_map(lambda g: compressed_psum(g, group), grads)
     return _tree_map(lambda g: _all_reduce(g, group), grads)
+
+
+# ---------------------------------------------------------------------------
+# the sharded substrate's exchanges over the axes of a bound mesh
+# ---------------------------------------------------------------------------
+
+
+def raw_all_reduce(t: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """All-reduce over the mesh's ``axes`` (no autograd); ``t`` itself where
+    this rank is alone along them."""
+    group = mesh.group(axes)
+    return t if group is None else _all_reduce(t, group, op)
+
+
+def raw_all_gather(t: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """The chunks of every rank along ``axes`` joined on ``dim`` in order (no
+    autograd)."""
+    group = mesh.group(axes)
+    if group is None:
+        return t
+    parts = _all_gather(t, group)
+    return torch.cat(parts.unbind(0), dim=dim)
+
+
+def _own(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    step = t.shape[dim] // n
+    return t.narrow(dim, dist.get_rank(group) * step, step)
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return torch.cat(_all_gather(x, group).unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own(g, ctx.group, ctx.dim).contiguous(), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _own(x, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat(_all_gather(g, ctx.group).unbind(0), dim=ctx.dim), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def copy_in(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over ``axes``: the entry of a
+    region where each rank along them computes a part of what follows."""
+    group = mesh.group(axes)
+    return x if group is None else _CopyIn.apply(x, group)
+
+
+def reduce_out(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum of ``x`` over ``axes``; the gradient passes as it is: the exit
+    of a partitioned region, into compute that every rank repeats."""
+    group = mesh.group(axes)
+    return x if group is None else _ReduceOut.apply(x, group)
+
+
+def gather(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` along ``axes`` joined on ``dim``; the gradient is
+    this rank's slice (what follows is the same on every rank)."""
+    group = mesh.group(axes)
+    return x if group is None else _Gather.apply(x, group, dim)
+
+
+def split(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """This rank's slice of ``x`` on ``dim`` (the same ``x`` on every rank
+    along ``axes``); the gradient is every rank's slice joined."""
+    group = mesh.group(axes)
+    return x if group is None else _Split.apply(x, group, dim)
+
+
+def all_to_all(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Chunk i of ``x [n, ...]`` to the i-th rank along ``axes``; the
+    gradient goes back the same way."""
+    group = mesh.group(axes)
+    return x if group is None else _AllToAll.apply(x, group)

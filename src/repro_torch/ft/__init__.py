@@ -1,5 +1,7 @@
-"""Fault tolerance of the port: what the trainer uses (port of part of ``repro.ft``)."""
+"""Fault tolerance of the port (port of ``repro.ft``)."""
 
-from .resilience import SimulatedFailure, StragglerMonitor, StragglerReport
+from .resilience import (ElasticMeshManager, HeartbeatMonitor, SimulatedFailure,
+                         StragglerMonitor, StragglerReport, remesh_pytree)
 
-__all__ = ["SimulatedFailure", "StragglerMonitor", "StragglerReport"]
+__all__ = ["SimulatedFailure", "HeartbeatMonitor", "StragglerMonitor", "StragglerReport",
+           "ElasticMeshManager", "remesh_pytree"]

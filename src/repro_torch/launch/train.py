@@ -1,4 +1,4 @@
-"""Training command line of the port (``repro.launch.train`` without the mesh).
+"""Training command line of the port (``repro.launch.train``).
 
 Trains any architecture of the registry (``--arch``) at full width on the
 CUDA device by default, on the synthetic Markov-chain data:
@@ -9,12 +9,17 @@ CUDA device by default, on the synthetic Markov-chain data:
 vocabulary is the model's, as in the reference, unless ``--data-vocab`` gives
 a smaller one (token ids 0 .. data_vocab - 1): the data's transition table is
 ``vocab x vocab`` float64, 20 GB an array at xlstm-125m's 50,304.
+
+``--mesh AxB`` (data x model; ``AxBxC`` adds pods) runs the sharded step on
+A * B ranks spawned on this host in a gloo group; the ranks share the card
+when there is one.  Without it the step runs on one device.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from typing import Sequence
 
@@ -22,9 +27,13 @@ import torch
 
 from ..configs import REGISTRY, get_config, reduced
 from ..data import DataConfig, SyntheticLMDataset, prefetch
+from ..distributed.world import run_world
 from ..models import Model
 from ..optim import AdamWConfig
 from ..training import TrainConfig, Trainer
+from .mesh import make_mesh_by_name
+
+WORLD_TIMEOUT_S = 7 * 24 * 3600.0
 
 
 def main(argv: Sequence[str] | None = None) -> list:
@@ -48,8 +57,19 @@ def main(argv: Sequence[str] | None = None) -> list:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--data-vocab", type=int, default=0,
                     help="vocabulary of the synthetic data (default: the model's)")
+    ap.add_argument("--mesh", default=None,
+                    help="AxB data x model (AxBxC: pod x data x model): that many ranks")
     args = ap.parse_args(argv)
+    cfg = _config(args)
+    if args.data_vocab > cfg.vocab:
+        ap.error(f"--data-vocab {args.data_vocab} exceeds the model's vocabulary {cfg.vocab}")
+    if args.mesh:
+        mesh = make_mesh_by_name(args.mesh)
+        return run_world(_rank, mesh.size, vars(args), timeout=WORLD_TIMEOUT_S)[0]
+    return _train(args, cfg)
 
+
+def _config(args: argparse.Namespace):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -58,13 +78,28 @@ def main(argv: Sequence[str] | None = None) -> list:
         overrides["n_layers"] = args.layers
     if args.d_model:
         overrides["d_model"] = args.d_model
-    if overrides:
-        cfg = cfg.with_(**overrides)
-    if args.data_vocab > cfg.vocab:
-        ap.error(f"--data-vocab {args.data_vocab} exceeds the model's vocabulary {cfg.vocab}")
+    return cfg.with_(**overrides) if overrides else cfg
+
+
+def _rank(rank: int, world: int, args: dict) -> list:
+    """One rank of ``--mesh``: the card shared (or the rank's own), the mesh bound."""
+    args = argparse.Namespace(**args)
+    mesh = make_mesh_by_name(args.mesh).bind()
+    if args.device == "cuda" and torch.cuda.is_available():
+        args.device = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(args.device)
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    return _train(args, _config(args), mesh)
+
+
+def _train(args: argparse.Namespace, cfg, mesh=None) -> list:
+    main_rank = mesh is None or mesh.rank == 0
     model = Model(cfg, device=args.device)
-    print(f"[train] {cfg.name}: {model.n_params() / 1e6:.1f}M params "
-          f"({model.n_active_params() / 1e6:.1f}M active) on {model.device}")
+    if main_rank:
+        print(f"[train] {cfg.name}: {model.n_params() / 1e6:.1f}M params "
+              f"({model.n_active_params() / 1e6:.1f}M active) on {model.device}"
+              + (f", mesh {mesh.shape}" if mesh is not None else ""))
 
     tcfg = TrainConfig(
         microbatches=args.microbatches,
@@ -72,11 +107,13 @@ def main(argv: Sequence[str] | None = None) -> list:
         optim=AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
                           total_steps=args.steps),
     )
-    trainer = Trainer(model, tcfg, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
+    trainer = Trainer(model, tcfg, mesh=mesh, ckpt_dir=args.ckpt_dir,
+                      ckpt_every=args.ckpt_every)
     if not trainer.maybe_restore():
         trainer.init_state(torch.Generator(device=model.device).manual_seed(0))
-        print("[train] fresh init")
-    else:
+        if main_rank:
+            print("[train] fresh init")
+    elif main_rank:
         print(f"[train] restored from step {trainer.step}")
 
     data = SyntheticLMDataset(DataConfig(vocab=args.data_vocab or cfg.vocab,
@@ -84,11 +121,11 @@ def main(argv: Sequence[str] | None = None) -> list:
     t0 = time.perf_counter()
     history = trainer.run(prefetch(iter(data)), args.steps, log_every=args.log_every)
     dt = time.perf_counter() - t0
-    if history:
+    if history and main_rank:
         tokens = args.steps * args.batch * args.seq
         print(f"[train] {len(history)} steps in {dt:.1f}s ({tokens / dt:,.0f} tok/s); "
               f"loss {history[0]['loss']:.4f} -> {history[-1]['loss']:.4f}")
-    if args.metrics_out:
+    if args.metrics_out and main_rank:
         with open(args.metrics_out, "w") as f:
             json.dump(history, f)
     return history

@@ -16,6 +16,17 @@ tolerance in bf16.  Decode of MLA layers (naive expansion, or absorbed with
 ``mla_absorbed_decode``) is the reference's einsums in plain torch, rounding
 and all: its K and V widths differ and the absorbed form has up to 64 query
 heads on one latent head, which the kernel does not take.
+
+Under a bound mesh (training on a sharded model, ``distributed/sharding.py``)
+:func:`attention_apply` computes the rank's query heads, with ``w_q``
+column-parallel and ``w_o`` row-parallel, where the ``heads`` rule cuts them
+over ``model`` and the heads divide: the input's gradient is summed over
+``model`` on entry and the output summed on exit.  K and V are the rank's
+own heads where the KV heads divide too; else every rank gathers the whole
+K/V projections (their gradient summed over ``model``, as each rank uses
+them for its heads only) and takes the KV heads its query heads read, as
+for gemma3-1b's single KV head.  MLA, and heads that ``model`` does not
+divide, run whole on every rank from gathered weights.
 """
 
 from __future__ import annotations
@@ -26,6 +37,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..distributed.collectives import copy_in, reduce_out
+from ..distributed.sharding import use_full, use_params
 from ..kernels import ops
 from .common import ModelConfig, ParamSpec, rms_norm
 
@@ -36,6 +49,7 @@ __all__ = [
     "init_kv_cache",
     "rope_cos_sin",
     "apply_rope",
+    "head_parallel",
 ]
 
 _NEG_INF = -2.0e38
@@ -230,17 +244,56 @@ def attention_apply(
     *,
     is_global: bool = True,
     chunk: int = 1024,
+    mesh=None,
+    specs: Optional[Dict[str, tuple]] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """``(attention output [B, S, d], cache entry (k, v) or (c_kv, k_pe))``.
 
     ``is_global`` is a Python bool: the port walks layers in a loop, so the
     reference's traced select between windowed and full attention is static.
+    With a bound ``mesh``, ``p`` holds this rank's shards, cut as ``specs``
+    says (see the module's doc; the cache entry is then the rank's heads).
     """
+    if mesh is not None:
+        return _attention_sharded(cfg, p, x, positions, is_global, chunk, mesh, specs or {})
     q, k, v, cache = _project_qkv(cfg, p, x, positions)
     window = cfg.sliding_window if cfg.attn_kind == "sliding" and not is_global else 0
     out = _chunked_attention(q, k, v, window=window, chunk=chunk)
     B, S = x.shape[:2]
     return out.reshape(B, S, -1) @ p["w_o"], cache
+
+
+def head_parallel(cfg: ModelConfig, specs: Dict[str, tuple], mesh) -> bool:
+    """Whether the rank computes its own query heads (see the module's doc)."""
+    m = mesh.axis_size("model")
+    return (m > 1 and cfg.attn_kind != "mla" and cfg.n_heads % m == 0
+            and specs.get("w_q") == (None, "model") and specs.get("w_o") == ("model",))
+
+
+def _attention_sharded(cfg: ModelConfig, p, x, positions, is_global, chunk, mesh, specs):
+    if not head_parallel(cfg, specs, mesh):
+        return attention_apply(cfg, use_params(p, specs, mesh), x, positions,
+                               is_global=is_global, chunk=chunk)
+    m, r = mesh.axis_size("model"), mesh.index("model")
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    Hl, rep = H // m, H // KV
+    if KV % m == 0 and all(specs.get(w) == (None, "model") for w in ("w_k", "w_v")):
+        kv_l, wk, wv = KV // m, p["w_k"], p["w_v"]
+    else:
+        # the KV head each local query head reads; one copy of each where
+        # the local heads share them in order, else one a query head
+        kv_of = (r * Hl + torch.arange(Hl)) // rep
+        if Hl % rep == 0 or rep % Hl == 0:
+            kv_of = torch.unique_consecutive(kv_of)
+        kv_l = kv_of.numel()
+        cols = (kv_of[:, None] * hd + torch.arange(hd)).reshape(-1).to(x.device)
+        wk, wv = (use_full(p[w], specs.get(w, ()), mesh, "model").index_select(1, cols)
+                  for w in ("w_k", "w_v"))
+    local = {"w_q": p["w_q"], "w_k": wk, "w_v": wv, "w_o": p["w_o"]}
+    out, kv = attention_apply(cfg.with_(n_heads=Hl, n_kv_heads=kv_l, head_dim=hd), local,
+                              copy_in(x, mesh, "model"), positions, is_global=is_global,
+                              chunk=chunk)
+    return reduce_out(out, mesh, "model"), kv
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,9 @@ block's parameters sit once under ``params["shared"]``.  The port keeps one
 block per layer, ``blocks.<i>``, and the shared block once, ``shared``.  :func:`params_from_jax`
 takes that tree with numpy leaves (bf16 leaves as ``ml_dtypes.bfloat16``
 arrays, as ``np.asarray`` gives them) and returns a ``state_dict`` for
-``Model(cfg)``.  :func:`opt_state_from_jax` carries the reference's AdamW
+``Model(cfg)``; given a bound mesh, the state_dict of this rank's shards,
+cut as ``distributed.sharding.shard_params`` cuts them.
+:func:`opt_state_from_jax` carries the reference's AdamW
 state across by the same walk, its moments and master kept in float32.  No
 JAX is imported: the caller converts to numpy.
 """
@@ -22,6 +24,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..distributed.sharding import DEFAULT_RULES, ShardingRules, param_shardings, shard_tensor
 from .common import ModelConfig
 from .model import build_plan, param_specs
 
@@ -78,10 +81,16 @@ def _flatten(np_tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tenso
     return out
 
 
-def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """``state_dict`` of ``Model(cfg)`` from the reference's numpy parameter tree."""
+def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig, mesh=None,
+                    rules: ShardingRules = DEFAULT_RULES) -> Dict[str, torch.Tensor]:
+    """``state_dict`` of ``Model(cfg)`` from the reference's numpy parameter
+    tree; with a bound ``mesh``, this rank's shards under ``rules``."""
     specs = param_specs(cfg)
-    return {name: t.to(specs[name].dtype) for name, t in _flatten(np_tree, cfg).items()}
+    out = {name: t.to(specs[name].dtype) for name, t in _flatten(np_tree, cfg).items()}
+    if mesh is None:
+        return out
+    cuts, _ = param_shardings(specs, mesh, rules)
+    return {name: shard_tensor(t, cuts[name], mesh).clone() for name, t in out.items()}
 
 
 def opt_state_from_jax(np_state: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:

@@ -15,8 +15,22 @@ the caches and ``is_global_attn`` receive.  ``forward``, ``prefill`` and
 ``decode_step`` walk the entries in a Python loop; ``prefill`` and
 ``decode_step`` run under ``torch.no_grad()``, ``forward`` records for
 autograd, and ``loss_fn`` is the reference's training loss on it.  Remat
-"full" (the reference's ``jax.checkpoint`` around each scanned block) is
-``torch.utils.checkpoint`` around each entry.
+(the reference's ``jax.checkpoint`` around each scanned block under a named
+policy) is ``distributed/remat.py``'s ``maybe_remat`` around each entry.
+
+A model bound to a mesh (``distributed.sharding.shard_params``) holds each
+rank's parameter shards and computes on this rank's batch rows: attention
+and MLP tensor-parallel where their specs allow (``models/attention.py``,
+``models/mlp.py``), MoE expert-parallel where ``ep_applicable``
+(``models/moe_ep.py``), a vocab-parallel embedding (a masked lookup in the
+rank's vocabulary slice, summed over ``model``) and head, and a
+vocab-parallel cross-entropy whose [B, S] statistics are summed over
+``model``, so no rank holds [B, S, vocab] logits.  The loss is the whole
+batch's on every rank: each rank's gradients are its rows' part, for the
+train step to sum over the batch axes.  Mamba2, xLSTM and MLA blocks (and
+attention whose heads ``model`` does not divide) run whole on every rank
+from gathered weights (:meth:`Model.unpartitioned` lists them).  Serving
+takes an unsharded model.
 """
 
 from __future__ import annotations
@@ -27,14 +41,19 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-import torch.utils.checkpoint
+import torch.distributed
 from torch import nn
 
 from ..device import resolve_device
-from .attention import attention_apply, attention_decode, attention_specs, init_kv_cache
+from ..distributed.collectives import copy_in, raw_all_reduce, reduce_out
+from ..distributed.remat import POLICIES, maybe_remat
+from ..distributed.sharding import shard_tensor, use_full, use_params
+from .attention import (attention_apply, attention_decode, attention_specs, head_parallel,
+                        init_kv_cache)
 from .common import ModelConfig, ParamSpec, count_params, fill_, rms_norm
-from .mlp import mlp_apply, mlp_specs
+from .mlp import col_parallel, mlp_apply, mlp_specs
 from .moe import moe_apply, moe_specs
+from .moe_ep import ep_applicable, ep_specs, moe_apply_ep
 from .ssm import init_ssm_state, mamba_apply, mamba_decode, mamba_specs
 from .xlstm import (init_mlstm_state, init_slstm_state, mlstm_apply, mlstm_decode, mlstm_specs,
                     slstm_apply, slstm_decode, slstm_specs)
@@ -178,10 +197,26 @@ def _zero_aux(device: torch.device) -> Dict[str, torch.Tensor]:
     return {k: torch.zeros((), dtype=torch.float32, device=device) for k in AUX_KEYS}
 
 
+def _effective(spec: tuple, mesh) -> tuple:
+    """``spec`` without the mesh's axes of size 1, trailing Nones trimmed."""
+    out = []
+    for part in spec:
+        axes = tuple(a for a in mesh.axes_in_order(part) if mesh.shape[a] > 1)
+        out.append(None if not axes else axes[0] if len(axes) == 1 else axes)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
 class _Block(nn.Module):
-    """A pre-norm residual block; its parameters as ``_block_specs`` names them."""
+    """A pre-norm residual block; its parameters as ``_block_specs`` names them.
+
+    ``mesh`` and ``specs`` (``{name: spec}`` of its own parameters, ``attn.w_q``
+    and so on) are set when the model is bound to a mesh."""
 
     kind = ""
+    mesh = None
+    specs: Dict[str, tuple] = {}
 
     def __init__(self, cfg: ModelConfig, device: torch.device, kind: str | None = None):
         super().__init__()
@@ -191,6 +226,28 @@ class _Block(nn.Module):
             setattr(self, name, _param(s, device) if isinstance(s, ParamSpec) else
                     nn.ParameterDict({k: _param(v, device) for k, v in s.items()}))
 
+    def sub_specs(self, part: str) -> Dict[str, tuple]:
+        """The effective specs of ``part``'s parameters, by their names in it
+        (none on a block that is not bound to a mesh)."""
+        n = len(part) + 1
+        return {k[n:]: _effective(v, self.mesh) for k, v in self.specs.items()
+                if k.startswith(part + ".")}
+
+    def norm(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        gamma = getattr(self, name)
+        if self.mesh is not None:
+            gamma = use_full(gamma, self.specs[name], self.mesh)
+        return rms_norm(x, gamma, self.cfg.norm_eps)
+
+    def part(self, name: str):
+        """Parameters of ``name`` as a compute that runs whole takes them."""
+        p = getattr(self, name)
+        return p if self.mesh is None else use_params(p, self.sub_specs(name), self.mesh)
+
+    def unpartitioned(self) -> List[str]:
+        """The parts this block computes whole on every rank of ``model``."""
+        return []
+
 
 class DenseBlock(_Block):
     """Pre-norm attention + gated MLP, both residual."""
@@ -199,16 +256,22 @@ class DenseBlock(_Block):
 
     def ffn(self, h: torch.Tensor, aux: bool = True):
         """``(y, aux losses)`` of the block's feed-forward half."""
-        return mlp_apply(self.cfg, self.mlp, h), _zero_aux(h.device) if aux else None
+        y = mlp_apply(self.cfg, self.mlp, h, mesh=self.mesh, specs=self.sub_specs("mlp"))
+        return y, _zero_aux(h.device) if aux else None
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, layer_idx: int):
         """Full causal pass: ``(x, aux losses, cache entry)``."""
         cfg = self.cfg
-        a, kv = attention_apply(cfg, self.attn, rms_norm(x, self.ln1, cfg.norm_eps), positions,
-                                is_global=cfg.is_global_attn(layer_idx))
+        a, kv = attention_apply(cfg, self.attn, self.norm("ln1", x), positions,
+                                is_global=cfg.is_global_attn(layer_idx), mesh=self.mesh,
+                                specs=self.sub_specs("attn"))
         x = x + a
-        y, aux = self.ffn(rms_norm(x, self.ln2, cfg.norm_eps))
+        y, aux = self.ffn(self.norm("ln2", x))
         return x + y, aux, kv
+
+    def unpartitioned(self) -> List[str]:
+        out = [] if head_parallel(self.cfg, self.sub_specs("attn"), self.mesh) else ["attn"]
+        return out + ([] if col_parallel(self.sub_specs("mlp")) else ["mlp"])
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int):
         cfg = self.cfg
@@ -229,8 +292,32 @@ class MoEBlock(DenseBlock):
     kind = "moe"
 
     def ffn(self, h: torch.Tensor, aux: bool = True):
-        y, losses, self.routing = moe_apply(self.cfg, self.moe, h, aux=aux)
+        mesh = self.mesh
+        if mesh is None:
+            y, losses, self.routing = moe_apply(self.cfg, self.moe, h, aux=aux)
+        elif self._expert_parallel():
+            # the experts as they lie, the router and shared experts whole
+            specs, want = self.sub_specs("moe"), ep_specs(self.cfg, mesh)
+            p = {k: v if want.get(k) else use_full(v, specs[k], mesh)
+                 for k, v in self.moe.items()}
+            y, losses = moe_apply_ep(self.cfg, p, h, mesh)
+            self.routing = None
+        else:
+            y, losses, self.routing = moe_apply(
+                self.cfg, self.part("moe"), h, aux=aux,
+                reduce=lambda t: reduce_out(t, mesh, mesh.batch_axes))
         return y, {**_zero_aux(h.device), **losses} if aux else None
+
+    def _expert_parallel(self) -> bool:
+        """Whether the experts lie as ``moe_apply_ep`` takes them."""
+        if not ep_applicable(self.cfg, self.mesh):
+            return False
+        specs, want = self.sub_specs("moe"), ep_specs(self.cfg, self.mesh)
+        return all(specs[k] == _effective(v, self.mesh) for k, v in want.items() if v)
+
+    def unpartitioned(self) -> List[str]:
+        attn = [] if head_parallel(self.cfg, self.sub_specs("attn"), self.mesh) else ["attn"]
+        return attn + ([] if self._expert_parallel() else ["moe"])
 
 
 class MambaBlock(_Block):
@@ -240,9 +327,12 @@ class MambaBlock(_Block):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, layer_idx: int):
         """Full causal pass: ``(x, aux losses, state after the last token)``."""
-        y, state = mamba_apply(self.cfg, self.mamba, rms_norm(x, self.ln1, self.cfg.norm_eps),
+        y, state = mamba_apply(self.cfg, self.part("mamba"), self.norm("ln1", x),
                                return_state=True)
         return x + y, _zero_aux(x.device), state
+
+    def unpartitioned(self) -> List[str]:
+        return ["mamba"]
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int):
         y, cache = mamba_decode(self.cfg, self.mamba, rms_norm(x, self.ln1, self.cfg.norm_eps),
@@ -260,9 +350,11 @@ class XLSTMBlock(_Block):
     def forward(self, x: torch.Tensor, positions: torch.Tensor, layer_idx: int):
         """Full causal pass: ``(x, aux losses, state after the last token)``."""
         apply = _XLSTM[self.kind][0]
-        y, state = apply(self.cfg, self.cell, rms_norm(x, self.ln1, self.cfg.norm_eps),
-                         return_state=True)
+        y, state = apply(self.cfg, self.part("cell"), self.norm("ln1", x), return_state=True)
         return x + y, _zero_aux(x.device), state
+
+    def unpartitioned(self) -> List[str]:
+        return ["cell"]
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int):
         decode = _XLSTM[self.kind][1]
@@ -272,6 +364,21 @@ class XLSTMBlock(_Block):
 
 _BLOCKS = {"dense": DenseBlock, "moe": MoEBlock, "mamba": MambaBlock,
            "xlstm_m": XLSTMBlock, "xlstm_s": XLSTMBlock}
+
+
+def _vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor, lo: int, mesh
+                        ) -> torch.Tensor:
+    """-log softmax at the labels from this rank's logits of ids ``lo`` on:
+    the rows' max, sum of exponentials and label logit, each summed (the max
+    taken) over ``model``; a label outside the slice adds 0."""
+    m = raw_all_reduce(logits.detach().amax(dim=-1), mesh, "model",
+                       op=torch.distributed.ReduceOp.MAX)
+    sumexp = reduce_out(torch.exp(logits - m[..., None]).sum(dim=-1), mesh, "model")
+    local = labels - lo
+    inside = (local >= 0) & (local < logits.shape[-1])
+    picked = torch.gather(logits, -1, local.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+    label_logit = reduce_out(torch.where(inside, picked, 0.0), mesh, "model")
+    return m + torch.log(sumexp) - label_logit
 
 
 class Model(nn.Module):
@@ -292,6 +399,8 @@ class Model(nn.Module):
         self.cfg = cfg.validate()
         specs = param_specs(cfg)
         self.device = resolve_device(device)
+        self.mesh = None        # set by bind_mesh
+        self.shardings = None   # {name: spec} under a mesh
         self.embed = _param(specs["embed"], self.device)
         self.final_norm = _param(specs["final_norm"], self.device)
         plan = layer_blocks(cfg)
@@ -312,11 +421,39 @@ class Model(nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
         """Draw every parameter from ``generator`` (seeded by the caller), in
-        place and one tensor at a time."""
+        place and one tensor at a time.  Bound to a mesh, every rank draws
+        each whole tensor and keeps its slice, so the values do not depend on
+        the mesh."""
         own = dict(self.named_parameters())
         for name, spec in self.param_specs().items():
-            fill_(own[name], spec, generator)
+            if self.mesh is None:
+                fill_(own[name], spec, generator)
+            else:
+                full = fill_(torch.empty(spec.shape, dtype=spec.dtype, device=self.device),
+                             spec, generator)
+                own[name].copy_(shard_tensor(full, self.shardings[name], self.mesh))
         return self
+
+    def bind_mesh(self, mesh, shardings: Dict[str, tuple]) -> None:
+        """Mark the parameters as this rank's shards under ``shardings``
+        (``distributed.sharding.shard_params`` cuts them and calls this)."""
+        self.mesh, self.shardings = mesh, shardings
+        for prefix, block in [(f"blocks.{i}", b) for i, b in enumerate(self.blocks)] + (
+                [("shared", self.shared)] if hasattr(self, "shared") else []):
+            block.mesh = mesh
+            block.specs = {k[len(prefix) + 1:]: v for k, v in shardings.items()
+                           if k.startswith(prefix + ".")}
+
+    def unpartitioned(self) -> List[str]:
+        """The parts of blocks that run whole on every rank of ``model``
+        (``blocks.3.mamba``, ``shared.attn``, ...); none without a mesh or
+        where ``model`` has one rank."""
+        if self.mesh is None or self.mesh.axis_size("model") == 1:
+            return []
+        named = [(f"blocks.{i}", b) for i, b in enumerate(self.blocks)]
+        if hasattr(self, "shared"):
+            named.append(("shared", self.shared))
+        return [f"{prefix}.{part}" for prefix, b in named for part in b.unpartitioned()]
 
     def n_params(self) -> int:
         return count_params(self.param_specs())
@@ -339,18 +476,63 @@ class Model(nn.Module):
         (qwen2-vl's and musicgen's stub frontends) in the param dtype."""
         if embeds is not None:
             x = torch.as_tensor(embeds, device=self.device).to(self.cfg.param_dtype)
-        else:
+        elif self.mesh is None:
             x = self.embed[torch.as_tensor(tokens, device=self.device)]
+        else:
+            x = self._embed_sharded(torch.as_tensor(tokens, device=self.device))
         if self.cfg.scale_embed:
             # sqrt(d_model) rounded to the activation dtype first, as in the
             # reference: 33.94 becomes 34.0 in bf16
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype, device=x.device)
         return x
 
+    def _vocab_slice(self) -> Optional[int]:
+        """Under a mesh, where the head's vocabulary is cut over ``model``:
+        the first id of this rank's slice; else None."""
+        if self.mesh is None or self.mesh.axis_size("model") == 1:
+            return None
+        tied = self.cfg.tie_embeddings
+        spec = _effective(self.shardings["embed" if tied else "lm_head"], self.mesh)
+        if spec != (("model",) if tied else (None, "model")):
+            return None
+        return self.mesh.index("model") * self.cfg.vocab // self.mesh.axis_size("model")
+
+    def _embed_sharded(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The vocab-parallel lookup: this rank's rows of the table where the
+        tokens fall in its slice, zeros elsewhere, summed over ``model``."""
+        spec = _effective(self.shardings["embed"], self.mesh)
+        if spec != ("model",) or self.mesh.axis_size("model") == 1:
+            return use_full(self.embed, self.shardings["embed"], self.mesh)[tokens]
+        rows = self.embed.shape[0]
+        local = tokens - self.mesh.index("model") * rows
+        inside = ((local >= 0) & (local < rows))[..., None]
+        x = torch.where(inside, self.embed[local.clamp(0, rows - 1)], 0)
+        return reduce_out(x, self.mesh, "model")
+
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        if self.mesh is not None:
+            return self._head_sharded(x)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         w = self.embed.T if cfg.tie_embeddings else self.lm_head
+        return self._logits(x, w)
+
+    def _head_sharded(self, x: torch.Tensor) -> torch.Tensor:
+        """The logits of this rank's vocabulary slice where the head is cut
+        over ``model`` (the input's gradient summed over it), else all."""
+        cfg, mesh = self.cfg, self.mesh
+        x = rms_norm(x, use_full(self.final_norm, self.shardings["final_norm"], mesh),
+                     cfg.norm_eps)
+        name = "embed" if cfg.tie_embeddings else "lm_head"
+        w = getattr(self, name)
+        if self._vocab_slice() is None:
+            w = use_full(w, self.shardings[name], mesh)
+        else:
+            x = copy_in(x, mesh, "model")
+        return self._logits(x, w.T if cfg.tie_embeddings else w)
+
+    def _logits(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
         logits = (x @ w).float()  # product in the param dtype, then float32
         if cfg.logit_softcap > 0:
             c = cfg.logit_softcap
@@ -359,18 +541,18 @@ class Model(nn.Module):
 
     # -- full forward -------------------------------------------------------------
 
-    def _layers(self, x: torch.Tensor, *, remat: bool = False):
+    def _layers(self, x: torch.Tensor, *, remat: str = "none"):
         """Every entry's full causal pass: ``(x, summed aux losses, cache
-        entries)``; with ``remat`` each entry under ``torch.utils.checkpoint``
-        (its activations recomputed in the backward) and no cache entries."""
+        entries)``; under a remat policy other than "none" each entry goes
+        through ``maybe_remat`` (its activations, but what the policy saves,
+        recomputed in the backward) and there are no cache entries."""
         B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
         aux_total = _zero_aux(x.device)
         kvs = []
         for li, block in enumerate(self.entries):
-            if remat:
-                x, aux, _ = torch.utils.checkpoint.checkpoint(block, x, positions, li,
-                                                              use_reentrant=False)
+            if remat != "none":
+                x, aux, _ = maybe_remat(block, remat)(x, positions, li)
             else:
                 x, aux, kv = block(x, positions, li)
                 kvs.append(kv)
@@ -381,20 +563,18 @@ class Model(nn.Module):
                 embeds: Optional[torch.Tensor] = None, remat: bool = False,
                 remat_policy: str = "full"
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Full causal forward: ``(logits [B, S, V] float32, aux losses)``.
+        """Full causal forward: ``(logits [B, S, V] float32, aux losses)``;
+        under a mesh with the head cut over ``model``, the logits of this
+        rank's vocabulary slice.
 
-        Records for autograd where grad mode is on.  ``remat`` with policy
-        "full" recomputes each entry in the backward; "dots" and
-        "dots_no_batch" save the products and need the sharded substrate's
-        remat policies (slice 4b).
+        Records for autograd where grad mode is on.  ``remat`` recomputes
+        each entry in the backward under ``remat_policy`` ("full", "dots",
+        "dots_no_batch": ``distributed/remat.py``).
         """
-        if remat and remat_policy != "full":
-            if remat_policy in ("dots", "dots_no_batch"):
-                raise NotImplementedError(
-                    f"remat policy {remat_policy!r} needs distributed/remat.py's policies, "
-                    "which come with the sharded substrate (slice 4b); use 'full'")
+        if remat and (remat_policy == "none" or remat_policy not in POLICIES):
             raise ValueError(f"unknown remat policy {remat_policy!r}")
-        x, aux, _ = self._layers(self._embed(tokens, embeds), remat=remat)
+        x, aux, _ = self._layers(self._embed(tokens, embeds),
+                                 remat=remat_policy if remat else "none")
         return self._head(x), aux
 
     def loss_fn(self, tokens: Optional[torch.Tensor] = None,
@@ -405,20 +585,38 @@ class Model(nn.Module):
         """``(loss, metrics)`` as the reference's ``loss_fn``: the mean
         next-token NLL over every position from a float32 ``log_softmax``
         (labels default to the tokens shifted left, padded with 0), plus the
-        weighted MoE load-balance and z losses; metrics ``{"ce", **aux}``."""
+        weighted MoE load-balance and z losses; metrics ``{"ce", **aux}``.
+
+        Under a mesh the tokens are this rank's rows, and the loss is the
+        whole batch's (the NLL summed over the batch axes, the MoE losses
+        from the whole batch's routing statistics): the same on every rank.
+        """
         logits, aux = self.forward(tokens, embeds=embeds, remat=remat,
                                    remat_policy=remat_policy)
         if labels is None:
             labels = F.pad(torch.as_tensor(tokens, device=self.device)[:, 1:], (0, 1))
         labels = torch.as_tensor(labels, device=self.device).long()
-        logp = torch.log_softmax(logits, dim=-1)
-        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
-        ce = nll.sum() / nll.numel()
+        if self.mesh is None:
+            logp = torch.log_softmax(logits, dim=-1)
+            nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+            ce = nll.sum() / nll.numel()
+        else:
+            lo = self._vocab_slice()
+            nll = (_vocab_parallel_nll(logits, labels, lo, self.mesh) if lo is not None else
+                   -torch.gather(torch.log_softmax(logits, dim=-1), -1, labels[..., None])[..., 0])
+            batch = self.mesh.batch_axes
+            ce = (reduce_out(nll.sum(), self.mesh, batch)
+                  / (nll.numel() * self.mesh.axis_size(batch)))
         total = (ce + moe_loss_weight * aux["moe_load_balance"]
                  + z_loss_weight * aux["moe_z"])
         return total, {"ce": ce, **aux}
 
     # -- serving ----------------------------------------------------------------
+
+    def _unsharded(self) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError("serving takes an unsharded model; this one is bound "
+                                      "to a mesh")
 
     def init_caches(self, batch: int, max_len: int):
         """Zeroed caches on the model's device (:func:`init_caches`)."""
@@ -433,6 +631,7 @@ class Model(nn.Module):
         latents), a ring of ``min(window, S)`` slots on local ones, and each
         recurrent block's state after the last token.
         """
+        self._unsharded()
         x, _, kvs = self._layers(self._embed(tokens, embeds))
         S = x.shape[1]
         caches = [self._prefill_cache(kv, li, S) if isinstance(block, DenseBlock) else kv
@@ -468,6 +667,7 @@ class Model(nn.Module):
         recurrent state's entries).  Returns
         (logits [B, V] float32, caches).
         """
+        self._unsharded()
         tokens = None if tokens is None else torch.as_tensor(tokens, device=self.device)[:, None]
         x = self._embed(tokens, embeds)
         for block, cache in zip(self.entries, caches):

@@ -45,11 +45,15 @@ def moe_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     return specs
 
 
-def route(cfg: ModelConfig, p, x2d: torch.Tensor, aux: bool = True):
+def route(cfg: ModelConfig, p, x2d: torch.Tensor, aux: bool = True, reduce=None):
     """Top-k routing: ``(indices [T, k], weights [T, k] float32, aux losses)``.
 
     With ``aux=False`` the losses are not computed (an empty dict): the
-    decode step drops them, as the reference's jitted step does.
+    decode step drops them, as the reference's jitted step does.  The losses
+    come from sums over the tokens (expert counts, router probabilities,
+    squared log-sum-exps, the token count); ``reduce``, where given, sums
+    those over the ranks that hold the other tokens, so a sharded batch gives
+    the losses of the whole batch.
 
     ``jax.lax.top_k`` puts the lower index first among equal values, and
     ``torch.topk`` on the card promises no order among them; a stable
@@ -63,13 +67,20 @@ def route(cfg: ModelConfig, p, x2d: torch.Tensor, aux: bool = True):
     weights = weights / torch.clamp(weights.sum(dim=-1, keepdim=True), min=1e-9)
     if not aux:
         return idx, weights, {}
-    # load-balance loss (Switch-style): E * sum(f_e * p_e)
     E = cfg.n_experts
-    density = torch.zeros(E, dtype=torch.float32, device=x2d.device).index_add_(
-        0, idx.reshape(-1), torch.ones(idx.numel(), dtype=torch.float32, device=x2d.device))
-    density = density / torch.clamp(density.sum(), min=1.0)
-    lb_loss = E * torch.sum(density * probs.mean(dim=0))
-    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    ones = torch.ones(idx.numel(), dtype=torch.float32, device=x2d.device)
+    counts = torch.zeros(E, dtype=torch.float32, device=x2d.device).index_add_(
+        0, idx.reshape(-1), ones)
+    lse_sq = torch.logsumexp(logits, dim=-1) ** 2
+    stats = torch.cat([counts, probs.sum(dim=0), lse_sq.sum()[None],
+                       torch.full((1,), x2d.shape[0], dtype=torch.float32, device=x2d.device)])
+    if reduce is not None:
+        stats = reduce(stats)
+    counts, n = stats[:E], stats[-1]
+    # load-balance loss (Switch-style): E * sum(f_e * p_e)
+    density = counts / torch.clamp(counts.sum(), min=1.0)
+    lb_loss = E * torch.sum(density * (stats[E:2 * E] / n))
+    z_loss = stats[2 * E] / n
     return idx, weights, {"moe_load_balance": lb_loss, "moe_z": z_loss}
 
 
@@ -93,7 +104,9 @@ def grouped_ffn_ref(cfg: ModelConfig, p, xs: torch.Tensor, offsets: torch.Tensor
 
 def grouped_ffn(cfg: ModelConfig, p, xs: torch.Tensor, offsets: torch.Tensor):
     """``grouped_ffn_ref``'s function: ``torch._grouped_mm`` on the card, the
-    loop on the CPU.  ``offsets`` is int32 on xs's device."""
+    loop on the CPU.  ``offsets`` is int32 on xs's device.  On the card, rows
+    past the last offset are left unwritten, in the output and in the input's
+    gradient."""
     if not xs.is_cuda:
         return grouped_ffn_ref(cfg, p, xs, offsets)
     act = activation(cfg)
@@ -103,13 +116,15 @@ def grouped_ffn(cfg: ModelConfig, p, xs: torch.Tensor, offsets: torch.Tensor):
 
 
 def moe_apply(
-    cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor, *, aux: bool = True
+    cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor, *, aux: bool = True,
+    reduce=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], torch.Tensor]:
-    """x: [B, S, d] -> ``(y, aux losses, routing indices [B*S, k])``."""
+    """x: [B, S, d] -> ``(y, aux losses, routing indices [B*S, k])``;
+    ``reduce`` as :func:`route` takes it."""
     B, S, d = x.shape
     x2d = x.reshape(-1, d)
     k = cfg.experts_per_token
-    idx, weights, losses = route(cfg, p, x2d, aux)
+    idx, weights, losses = route(cfg, p, x2d, aux, reduce)
 
     # sort the token-expert assignments by expert id (stable, as jnp.argsort)
     flat_expert = idx.reshape(-1)                                   # [T*k]

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -73,7 +73,8 @@ def adamw_init(params: Dict[str, torch.Tensor], cfg: AdamWConfig) -> Dict[str, o
 
 @torch.no_grad()
 def adamw_step(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-               state: Dict[str, object], cfg: AdamWConfig
+               state: Dict[str, object], cfg: AdamWConfig, *,
+               grad_norm: Optional[torch.Tensor] = None,
                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, object], Dict[str, torch.Tensor]]:
     """One step: ``(params, state, {"lr", "grad_norm"})``, params and state
     updated in place (the same objects are returned).
@@ -81,10 +82,12 @@ def adamw_step(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
     Gradients are scaled by ``min(1, clip_norm / global_norm)``; the update is
     ``w - lr * (m_hat / (sqrt(v_hat) + eps) + weight_decay * w)`` on the
     float32 master, and each parameter becomes the master cast to its dtype.
+    A caller that holds only part of the gradients (a ZeRO-1 shard) passes
+    the whole model's ``grad_norm``.
     """
     step = state["step"] + 1
     lr = cosine_lr(cfg, step)
-    gnorm = global_norm(grads[k] for k in params)
+    gnorm = global_norm(grads[k] for k in params) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     b1, b2 = cfg.beta1, cfg.beta2
     c1 = 1.0 - b1 ** step.to(torch.float32)

@@ -170,11 +170,11 @@ def check_arch(arch, dtype, with_embeds, monkeypatch):
     margins = []  # the smallest k-th minus (k+1)-th router probability of a step
     route = moe.route
 
-    def route_and_margin(cfg, p, x2d, aux=True):
+    def route_and_margin(cfg, p, x2d, *args):
         probs = torch.softmax(x2d.float() @ p["router"], dim=-1).sort(-1, descending=True)[0]
         k = cfg.experts_per_token
         margins.append((probs[:, k - 1] - probs[:, k]).min().item())
-        return route(cfg, p, x2d, aux)
+        return route(cfg, p, x2d, *args)
 
     monkeypatch.setattr(moe, "route", route_and_margin)
 

@@ -37,13 +37,17 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env, check=True,
                          capture_output=True, text=True, timeout=120).stdout.split()
     assert out == [str(expected), "[]"]
-    assert expected >= 52  # every module of the slices so far was walked: moe.py and
-    # the ten configs of the attention-family slice, ssm.py and xlstm.py, and the
-    # training slice's optim, data, checkpoint, ft, training and launch.train
+    assert expected >= 58  # every module of the slices so far was walked: moe.py and
+    # the ten configs of the attention-family slice, ssm.py and xlstm.py, the
+    # training slice's optim, data, checkpoint, ft, training and launch.train,
+    # and the sharded substrate's sharding, zero, remat, pipeline, moe_ep and mesh
     assert {"repro_torch.models.ssm", "repro_torch.models.xlstm", "repro_torch.optim.adamw",
             "repro_torch.data.pipeline", "repro_torch.checkpoint.store",
             "repro_torch.ft.resilience", "repro_torch.training.trainer",
-            "repro_torch.launch.train"} <= {
+            "repro_torch.launch.train", "repro_torch.distributed.sharding",
+            "repro_torch.distributed.zero", "repro_torch.distributed.remat",
+            "repro_torch.distributed.pipeline", "repro_torch.models.moe_ep",
+            "repro_torch.launch.mesh"} <= {
         m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
 
 

@@ -1,0 +1,245 @@
+"""The port's sharded train step (``training/trainer.py`` with a mesh) on gloo
+CPU worlds against the single-device step.
+
+The reference's own sharded step fails on jax 0.9 (``params["embed"][tokens]``
+on a model-sharded table raises ``ShardingTypeError``), so the step is held
+to the port's single-device step, which ``test_torch_train.py`` holds to the
+reference's ``jax.value_and_grad(Model.loss_fn)`` and ``adamw_step``.  The
+reference runs once, in a subprocess: ``Model.init(PRNGKey(0))`` of the
+reduced gemma3-1b and olmoe-1b-7b and their loss on the test's first batch,
+in float32 and bf16.  Both port sides start from those
+weights (each rank through ``params_from_jax`` with its mesh).
+
+One world of 4 ranks a mesh, (2, 2), (1, 4) and (4, 1): tensor-parallel
+attention (the single KV head of gemma3-1b gathered on every model rank),
+MLP, vocab-parallel embedding, head and cross-entropy, expert-parallel MoE
+(capacity factor 4, so no pair drops and the layer equals the dropless
+``moe_apply``), batch rows over ``data`` in 2 microbatches, ZeRO-1.
+
+Bounds: float32, the loss of the whole batch within 1e-3 of the
+single-device step's (and of the reference's), every gathered gradient
+within 1e-4, the parameters after 2 AdamW steps within 1e-5, except where
+AdamW magnifies a rounding, as ``test_torch_train.py`` sets out: an entry
+whose gradient is a near-cancelling sum (nonzero and below ``G_NOISE`` in
+some step) may move by up to a whole update, so such an entry is held to
+``2 * sum(lr)``, and they must be fewer than 1 in 10^4; bf16, the
+losses of all meshes and the single device within 0.05 (the reference's
+cross-mesh bound, ``tests/test_distributed.py``).  On each mesh the step
+under remat "dots" (the exchanges recomputed with the rest) equals the step
+without remat within 1e-6.  This file imports
+no JAX: the spawned ranks import it.
+"""
+
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.distributed import run_world
+from repro_torch.distributed.collectives import raw_all_reduce
+from repro_torch.distributed.sharding import gather_params, gather_tensor, shard_tensor, spec_axes
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models import Model
+from repro_torch.models.convert import params_from_jax
+from repro_torch.optim import AdamWConfig
+from repro_torch.training import TrainConfig, build_train_step
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+ARCHS = ("gemma3-1b", "olmoe-1b-7b")
+DTYPES = ("float32", "bfloat16")
+MESHES = ((2, 2), (1, 4), (4, 1))
+B, S, MB, STEPS = 8, 24, 2, 2
+OPT = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=6)
+LR_SUM = 5e-4 + 1e-3  # the two steps' learning rates (warmup 2)
+G_NOISE = 1e-5  # a nonzero float32 gradient below this is near-cancelling noise
+
+_REFERENCE = """
+import pickle, sys
+import numpy as np
+import jax, jax.numpy as jnp
+from repro.configs import get_config, reduced
+from repro.models import Model
+
+rng = np.random.default_rng(0)
+batches = [(rng.integers(0, 256, (8, 24)).astype(np.int32),
+            rng.integers(0, 256, (8, 24)).astype(np.int32)) for _ in range(2)]
+out = {"batches": batches}
+for arch in ("gemma3-1b", "olmoe-1b-7b"):
+    for name, dt in (("float32", jnp.float32), ("bfloat16", jnp.bfloat16)):
+        model = Model(reduced(get_config(arch)).with_(param_dtype=dt))
+        params = model.init(jax.random.PRNGKey(0))
+        tok, lab = batches[0]
+        loss, _ = jax.jit(model.loss_fn)(params, jnp.asarray(tok), jnp.asarray(lab))
+        out[f"{arch}/{name}"] = {"params": jax.tree.map(np.asarray, params), "loss": float(loss)}
+pickle.dump(out, open(sys.argv[1], "wb"))
+"""
+
+
+def _cfg(arch: str, dtype: str):
+    return reduced(get_config(arch)).with_(param_dtype=getattr(torch, dtype), capacity_factor=4.0)
+
+
+def _tcfg(remat: str = "none") -> TrainConfig:
+    return TrainConfig(microbatches=MB, remat_policy=remat, optim=OPT)
+
+
+def _train(model, step, batches) -> dict:
+    state = step.init_state()
+    losses, norms = [], []
+    for tokens, labels in batches:
+        state, metrics = step(state, torch.from_numpy(tokens), torch.from_numpy(labels))
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    return {"losses": losses, "grad_norms": norms}
+
+
+def _rank_job(rank: int, world: int, dims, reference) -> dict:
+    torch.set_num_threads(1)
+    mesh = Mesh(dict(zip(("data", "model"), dims))).bind()
+    batches = reference["batches"]
+    out = {}
+    variants = [(a, d, "none") for a in ARCHS for d in DTYPES]
+    variants += [(a, "float32", "dots") for a in ARCHS]
+    for arch, dtype, remat in variants:
+        cfg = _cfg(arch, dtype)
+        model = Model(cfg, device="cpu")
+        step = build_train_step(model, _tcfg(remat), mesh)
+        model.load_state_dict(params_from_jax(reference[f"{arch}/{dtype}"]["params"], cfg, mesh))
+        res = {}
+        if remat == "none":
+            # the whole batch's loss and gradients: this rank's rows, its part
+            tokens, labels = (shard_tensor(torch.from_numpy(t), ("data",), mesh)
+                              for t in batches[0])
+            loss, _ = model.loss_fn(tokens, labels)
+            loss.backward()
+            specs = model.shardings
+            res["loss"] = loss.item()
+            res["grads"] = {}
+            for k, p in model.named_parameters():
+                g = p.grad.float()
+                if not set(spec_axes(specs[k])) & set(mesh.batch_axes):
+                    g = raw_all_reduce(g, mesh, mesh.batch_axes)
+                res["grads"][k] = gather_tensor(g, specs[k], mesh).numpy()
+        res.update(_train(model, step, batches))
+        res["params"] = {k: v.float().numpy() for k, v in gather_params(model).items()}
+        out[(arch, dtype, remat)] = res
+    return out
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    path = tmp_path_factory.mktemp("sharded_train") / "reference.pkl"
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "PYTHONPATH": os.pathsep.join([str(SRC), os.environ.get("PYTHONPATH", "")])}
+    run = subprocess.run([sys.executable, "-c", _REFERENCE, str(path)], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+@pytest.fixture(scope="module")
+def single(reference):
+    """The single-device step from the reference's weights: loss, gradients
+    and the parameters after the steps."""
+    out = {}
+    for arch in ARCHS:
+        for dtype in DTYPES:
+            cfg = _cfg(arch, dtype)
+            model = Model(cfg, device="cpu")
+            model.load_state_dict(params_from_jax(reference[f"{arch}/{dtype}"]["params"], cfg))
+            model.requires_grad_(True)
+            tokens, labels = (torch.from_numpy(t) for t in reference["batches"][0])
+            loss, _ = model.loss_fn(tokens, labels)
+            loss.backward()
+            res = {"loss": loss.item(),
+                   "grads": {k: p.grad.float().numpy() for k, p in model.named_parameters()}}
+            model.zero_grad(set_to_none=True)
+            step = build_train_step(model, _tcfg())
+            state = step.init_state()
+            res.update(losses=[], grad_norms=[])
+            res["noisy"] = {k: np.zeros(p.shape, bool) for k, p in model.named_parameters()}
+            for tokens, labels in reference["batches"]:
+                tokens, labels = torch.from_numpy(tokens), torch.from_numpy(labels)
+                model.zero_grad(set_to_none=True)
+                model.loss_fn(tokens, labels)[0].backward()
+                for k, p in model.named_parameters():
+                    res["noisy"][k] |= ((p.grad != 0) & (p.grad.abs() < G_NOISE)).numpy()
+                state, metrics = step(state, tokens, labels)
+                res["losses"].append(float(metrics["loss"]))
+                res["grad_norms"].append(float(metrics["grad_norm"]))
+            res["params"] = {k: p.detach().float().numpy() for k, p in model.named_parameters()}
+            out[(arch, dtype)] = res
+    return out
+
+
+@pytest.fixture(scope="module", params=MESHES, ids=[f"{a}x{b}" for a, b in MESHES])
+def world(request, reference):
+    dims = request.param
+    return dims, run_world(_rank_job, dims[0] * dims[1], dims, reference, timeout=300)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_float32_loss_and_gradients_equal_the_single_device(world, single, reference, arch):
+    _, ranks = world
+    want = single[(arch, "float32")]
+    assert abs(want["loss"] - reference[f"{arch}/float32"]["loss"]) < 3e-5
+    for out in ranks:
+        got = out[(arch, "float32", "none")]
+        assert abs(got["loss"] - want["loss"]) < 1e-3
+        assert abs(got["loss"] - reference[f"{arch}/float32"]["loss"]) < 1e-3
+        for k, g in want["grads"].items():
+            np.testing.assert_allclose(got["grads"][k], g, rtol=1e-4, atol=1e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_float32_steps_equal_the_single_device(world, single, arch):
+    _, ranks = world
+    want = single[(arch, "float32")]
+    for out in ranks:
+        got = out[(arch, "float32", "none")]
+        np.testing.assert_allclose(got["losses"], want["losses"], rtol=0, atol=1e-3)
+        np.testing.assert_allclose(got["grad_norms"], want["grad_norms"], rtol=1e-4)
+        outside, total = 0, 0
+        for k, p in want["params"].items():
+            diff = np.abs(got["params"][k] - p)
+            out_mask = diff > 1e-5 + 1e-5 * np.abs(p)
+            assert want["noisy"][k][out_mask].all(), k
+            assert (diff[out_mask] <= 2 * LR_SUM).all(), k
+            outside += int(out_mask.sum())
+            total += p.size
+        assert outside <= 1e-4 * total
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bf16_losses_within_the_cross_mesh_bound(world, single, arch):
+    _, ranks = world
+    want = single[(arch, "bfloat16")]
+    for out in ranks:
+        got = out[(arch, "bfloat16", "none")]
+        spread = np.abs(np.array(got["losses"] + [got["loss"]])
+                        - np.array(want["losses"] + [want["loss"]])).max()
+        assert spread < 0.05, spread
+
+
+def test_every_rank_agrees(world):
+    _, ranks = world
+    for key, first in ranks[0].items():
+        for out in ranks[1:]:
+            assert out[key]["losses"] == first["losses"], key
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_dots_equals_no_remat_on_the_mesh(world, arch):
+    _, ranks = world
+    for out in ranks:
+        base, dots = out[(arch, "float32", "none")], out[(arch, "float32", "dots")]
+        np.testing.assert_allclose(dots["losses"], base["losses"], rtol=0, atol=1e-6)
+        for k, p in base["params"].items():
+            np.testing.assert_allclose(dots["params"][k], p, rtol=1e-6, atol=1e-6, err_msg=k)

@@ -237,10 +237,21 @@ def test_remat_full_equals_none():
 
 @pytest.mark.parametrize("policy", ["dots", "dots_no_batch"])
 def test_remat_policies_of_the_sharded_slice_raise(policy):
+    """The sharded substrate's policies now run (they raised until it came):
+    loss and gradients equal those without remat; an unknown name still
+    raises."""
     _, _, model = _pair("gemma3-1b")
     toks, _ = _tokens(model.cfg)
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        model.loss_fn(torch.from_numpy(toks), remat=True, remat_policy=policy)
+    model.requires_grad_(True)
+    grads = {}
+    for remat in (False, True):
+        model.zero_grad(set_to_none=True)
+        loss, _ = model.loss_fn(torch.from_numpy(toks), remat=remat, remat_policy=policy)
+        loss.backward()
+        grads[remat] = (loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()})
+    assert grads[True][0] == grads[False][0]
+    for name, g in grads[False][1].items():
+        assert torch.equal(grads[True][1][name], g), name
     with pytest.raises(ValueError, match="unknown remat policy"):
         model.loss_fn(torch.from_numpy(toks), remat=True, remat_policy="some")
 
