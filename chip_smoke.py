@@ -74,7 +74,8 @@ Phases, each printing one JSON line:
            process each, sharing the card in a gloo group that exchanges
            through the host; the train phase's run for 3 steps from the same
            seed and batches: each step's loss within 0.05 of the one-rank
-           run's, the first step's gradient norm within 1%, the later ones
+           run's, the gradient norm within 1% at steps 1 and 2, and at step 1
+           each tensor kind's norm within 1% of a one-rank rerun's; step 3's
            beside a one-rank control cut into 4 microbatches; exact rmsnorm
            launches a step and rank (106 / 106); per rank the peak memory
            beside its bytes of parameters, gradient buffers and ZeRO-1 state,
@@ -101,6 +102,7 @@ and prints no result.  Without a CUDA device it exits 2 at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -221,19 +223,23 @@ RMSNORM_BWD_SHAPES = ((2048, 1152), (1024, 768))  # the two training paths' rows
 # (2, 2) mesh of 4 ranks sharing the card (a gloo group exchanging through the
 # host), the train phase's run (TRAIN_RUNS) for SHARDED_STEPS steps from the
 # same seed and batches: each step's loss within 0.05 of the one-rank run's
-# (the reference's bf16 cross-mesh bound, tests/test_distributed.py), and the
-# first step's gradient norm (both runs at the same weights) within 1%.  The
-# later steps' norms are printed beside a control: the one-rank run with its
-# batch cut into 4 microbatches instead of 2, the same steps with only their
-# bf16 roundings moved.  This run is chaotic in bf16 by its third step (lr
-# 3e-3; the norm jumps 5.4 -> 12.4): any such perturbation, sharded or not,
-# moves every tensor's gradient norm there by several percent alike
-# (tools/sharded_divergence.py)
+# (the reference's bf16 cross-mesh bound, tests/test_distributed.py), the
+# gradient norm within 1% over the first SHARDED_GNORM_STEPS steps, and at the
+# first step (both runs at the same weights) each tensor kind's gradient norm
+# (embed, attn.w_k, ... over the layers) within 1% too, so that a wrong sum
+# over an axis in one small tensor cannot hide in the global norm.  The third
+# step's norm is printed beside a control: the one-rank run with its batch cut
+# into 4 microbatches instead of 2, the same steps with only their bf16
+# roundings moved.  This run is chaotic in bf16 by its third step (lr 3e-3;
+# the norm jumps 5.4 -> 12.4): any such perturbation, sharded or not, moves
+# every tensor's gradient norm there by several percent alike, and in float32
+# the sharded run's does not move (tools/sharded_divergence.py --float32)
 SHARDED_MESH = {"data": 2, "model": 2}
 SHARDED_CONTROL_MICROBATCHES = 4
 SHARDED_STEPS = 3
 SHARDED_LOSS_TOL = 0.05
 SHARDED_GNORM_RTOL = 0.01
+SHARDED_GNORM_STEPS = 2
 # olmoe-1b-7b's MoE layer at full width (64 experts top-8, d 2048, ff 1024)
 # expert-parallel on (1, 4), float32: the scatter path at B 4 x S 512, the
 # gather path at B 4 x S 1, against moe_apply on one rank (the reference
@@ -1842,13 +1848,14 @@ def _sharded_rank(rank: int, world: int, arch: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     rmsnorm_cuda.launches = rmsnorm_bwd_cuda.launches = 0
     EXCHANGED.clear()
-    history = trainer.run(batches, SHARDED_STEPS, log_every=0)
+    with recording_grad_squares(trainer) as squares:
+        history = trainer.run(batches, SHARDED_STEPS, log_every=0)
     torch.cuda.synchronize()
     launches = {"rmsnorm": rmsnorm_cuda.launches, "rmsnorm_bwd": rmsnorm_bwd_cuda.launches}
     exchanged = {k: v / SHARDED_STEPS for k, v in EXCHANGED.items()}
     return {"rank": rank, "coord": mesh.coord, "backend": str(dist.get_backend()),
             "exchange_device": str(exchange_device(params["embed"])),
-            "init_s": init_s, "history": history, "launches": launches,
+            "init_s": init_s, "history": history, "squares": squares, "launches": launches,
             "bytes_exchanged_per_step": exchanged,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
             "param_bytes": param_bytes,
@@ -1861,8 +1868,9 @@ def _sharded_rank(rank: int, world: int, arch: str) -> dict:
 
 def phase_sharded(card: str, single: dict) -> dict:
     """gemma3-1b at full width and depth on a (2, 2) mesh: 4 ranks, one
-    process each, sharing the card; each step's loss and gradient norm held
-    to the one-rank train phase's (``single``)."""
+    process each, sharing the card; each step's loss and the first steps'
+    gradient norms held to the one-rank train phase's (``single``), the first
+    step's norm of each tensor kind to a one-rank rerun's."""
     from repro_torch.distributed import run_world
 
     arch = TRAIN_MAIN
@@ -1870,12 +1878,20 @@ def phase_sharded(card: str, single: dict) -> dict:
     world = SHARDED_MESH["data"] * SHARDED_MESH["model"]
     ranks = run_world(_sharded_rank, world, arch, timeout=900)
     seconds = time.perf_counter() - t0
-    control = _one_rank_control(arch)
+    base = _one_rank(arch, TRAIN_RUNS[arch][2])
+    control = _one_rank(arch, SHARDED_CONTROL_MICROBATCHES)
     per_step = TRAIN_LAUNCHES_PER_STEP[arch]
     expect = {k: n * SHARDED_STEPS for k, n in per_step.items()}
     want_loss = single["losses"][:SHARDED_STEPS]
     want_gnorm = single["grad_norms"][:SHARDED_STEPS]
     control_dev = [(a - b) / b for a, b in zip(control["grad_norms"], want_gnorm)]
+    # each kind's norm a step: the pieces that count are spread over the ranks
+    kinds = [{k: sum(r["squares"][i].get(k, 0.0) for r in ranks) ** 0.5
+              for k in base["kinds"][i]} for i in range(SHARDED_STEPS)]
+    kind_dev = [{k: (v - b[k]) / b[k] for k, v in got.items()}
+                for got, b in zip(kinds, base["kinds"])]
+    if max(abs(v) for v in kind_dev[0].values()) >= SHARDED_GNORM_RTOL:
+        raise AssertionError(f"step 1's gradient norms by tensor kind moved {kind_dev[0]}")
     for r in ranks:
         if r["launches"] != expect:
             raise AssertionError(f"rank {r['rank']}: rmsnorm launches {r['launches']} != "
@@ -1883,7 +1899,8 @@ def phase_sharded(card: str, single: dict) -> dict:
         losses = [h["loss"] for h in r["history"]]
         gnorm_dev = [(h["grad_norm"] - b) / b for h, b in zip(r["history"], want_gnorm)]
         loss_err = max(abs(a - b) for a, b in zip(losses, want_loss))
-        if not loss_err < SHARDED_LOSS_TOL or not abs(gnorm_dev[0]) < SHARDED_GNORM_RTOL:
+        if (not loss_err < SHARDED_LOSS_TOL
+                or not max(map(abs, gnorm_dev[:SHARDED_GNORM_STEPS])) < SHARDED_GNORM_RTOL):
             raise AssertionError(f"rank {r['rank']}: losses {losses} against {want_loss}, "
                                  f"grad norms moved {gnorm_dev}")
         r.update(loss_max_abs_err=loss_err, grad_norm_rel_dev=gnorm_dev)
@@ -1899,10 +1916,16 @@ def phase_sharded(card: str, single: dict) -> dict:
             "single_rank_losses": want_loss,
             "grad_norms": [h["grad_norm"] for h in ranks[0]["history"]],
             "single_rank_grad_norms": want_gnorm,
-            "control": {"microbatches": SHARDED_CONTROL_MICROBATCHES, **control,
+            "grad_norm_by_kind_rel_dev": kind_dev,
+            "grad_norm_by_kind_max_abs_rel_dev": [max(abs(v) for v in d.values())
+                                                  for d in kind_dev],
+            "rerun_grad_norms": base["grad_norms"],
+            "control": {"microbatches": SHARDED_CONTROL_MICROBATCHES,
+                        "losses": control["losses"], "grad_norms": control["grad_norms"],
                         "grad_norm_rel_dev": control_dev},
             "loss_tolerance": SHARDED_LOSS_TOL,
-            "grad_norm_rtol_first_step": SHARDED_GNORM_RTOL,
+            "grad_norm_rtol": SHARDED_GNORM_RTOL,
+            "grad_norm_steps_held": SHARDED_GNORM_STEPS,
             "launches": {k: sum(r["launches"][k] for r in ranks) for k in per_step},
             "launches_per_step_and_rank": per_step,
             "step_ms_rank0": step_ms[0],
@@ -1916,9 +1939,49 @@ def phase_sharded(card: str, single: dict) -> dict:
             "seconds": seconds, "card": card}
 
 
-def _one_rank_control(arch: str) -> dict:
+def grad_kind(name: str) -> str:
+    """A parameter's kind: its name without the layer (``attn.w_k``, ``embed``)."""
+    parts = name.split(".")
+    return ".".join(parts[2:]) if parts[0] == "blocks" else parts[0]
+
+
+@contextlib.contextmanager
+def recording_grad_squares(trainer):
+    """Within it, each step of ``trainer`` appends ``{kind: squared gradient
+    norm}`` to the list it yields, over the gradients that count in the
+    step's norm on this rank (under a mesh, its ZeRO-1 pieces at coordinate 0
+    of every axis along which a piece is repeated), summed over the layers.
+    It wraps the trainer module's ``adamw_step``, which sees every step's
+    gradients, and puts it back on leaving."""
+    import repro_torch.training.trainer as trainer_mod
+    from repro_torch.distributed.sharding import spec_axes
+
+    mesh, step, out = trainer.mesh, trainer_mod.adamw_step, []
+
+    def counted(name: str) -> bool:
+        axes = spec_axes(trainer.shardings["state"][name]) if mesh is not None else ()
+        return mesh is None or all(mesh.coord[a] == 0 for a in mesh.shape if a not in axes)
+
+    def recording(params, grads, state, cfg, **kw):
+        names = [k for k in grads if counted(k)]
+        squares = torch.stack([torch.sum(torch.square(grads[k].float())) for k in names])
+        kinds: dict = {}
+        for k, v in zip(names, squares.tolist()):
+            kinds[grad_kind(k)] = kinds.get(grad_kind(k), 0.0) + v
+        out.append(kinds)
+        return step(params, grads, state, cfg, **kw)
+
+    trainer_mod.adamw_step = recording
+    try:
+        yield out
+    finally:
+        trainer_mod.adamw_step = step
+
+
+def _one_rank(arch: str, microbatches: int) -> dict:
     """The one-rank run of the sharded phase's steps with the batch cut into
-    SHARDED_CONTROL_MICROBATCHES microbatches: losses and gradient norms."""
+    ``microbatches``: losses, gradient norms, and each tensor kind's gradient
+    norm a step."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLMDataset
     from repro_torch.models import Model
@@ -1928,16 +1991,18 @@ def _one_rank_control(arch: str) -> dict:
     batch, seq, _, steps, lr, warmup = TRAIN_RUNS[arch]
     torch.cuda.empty_cache()
     model = Model(get_config(arch))
-    trainer = Trainer(model, TrainConfig(microbatches=SHARDED_CONTROL_MICROBATCHES,
+    trainer = Trainer(model, TrainConfig(microbatches=microbatches,
                                          optim=AdamWConfig(lr=lr, warmup_steps=warmup,
                                                            total_steps=steps)))
     trainer.init_state(torch.Generator(device="cuda").manual_seed(0))
     data = SyntheticLMDataset(DataConfig(vocab=TRAIN_DATA_VOCAB, seq_len=seq, global_batch=batch))
-    history = trainer.run(iter(data), SHARDED_STEPS, log_every=0)
+    with recording_grad_squares(trainer) as squares:
+        history = trainer.run(iter(data), SHARDED_STEPS, log_every=0)
     del trainer, model
     torch.cuda.empty_cache()
     return {"losses": [h["loss"] for h in history],
-            "grad_norms": [h["grad_norm"] for h in history]}
+            "grad_norms": [h["grad_norm"] for h in history],
+            "kinds": [{k: v ** 0.5 for k, v in sq.items()} for sq in squares]}
 
 
 def _slices(x: torch.Tensor, n: int) -> list:

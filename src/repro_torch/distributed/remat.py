@@ -26,36 +26,17 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 __all__ = ["POLICIES", "get_policy", "maybe_remat"]
 
 _aten = torch.ops.aten
+_NO_BATCH = frozenset({_aten.mm.default, _aten.addmm.default})
+_BATCH = frozenset({_aten.bmm.default, _aten.baddbmm.default}
+                   | ({_aten._grouped_mm.default} if hasattr(_aten, "_grouped_mm") else set()))
 
-
-def _no_batch_ops() -> frozenset:
-    return frozenset({_aten.mm.default, _aten.addmm.default})
-
-
-def _batch_ops() -> frozenset:
-    ops = {_aten.bmm.default, _aten.baddbmm.default}
-    if hasattr(_aten, "_grouped_mm"):
-        ops.add(_aten._grouped_mm.default)
-    return frozenset(ops)
-
-
-def _saving(ops: Callable[[], frozenset]) -> Callable[[], Callable]:
-    def make():
-        keep = ops()
-
-        def policy(ctx, op, *args, **kwargs):
-            return (CheckpointPolicy.MUST_SAVE if op in keep
-                    else CheckpointPolicy.PREFER_RECOMPUTE)
-        return policy
-    return make
-
-
-POLICIES: Dict[str, Optional[Callable]] = {
+# each policy's matrix products kept from the forward; None: no remat
+POLICIES: Dict[str, Optional[frozenset]] = {
     # recompute everything in backward (min memory, max recompute)
-    "full": _saving(frozenset),
+    "full": frozenset(),
     # save matmul outputs (the usual sweet spot for transformer blocks)
-    "dots": _saving(lambda: _no_batch_ops() | _batch_ops()),
-    "dots_no_batch": _saving(_no_batch_ops),
+    "dots": _NO_BATCH | _BATCH,
+    "dots_no_batch": _NO_BATCH,
     # no remat at all (max memory, zero recompute)
     "none": None,
 }
@@ -66,8 +47,13 @@ def get_policy(name: str):
     None for "none"."""
     if name not in POLICIES:
         raise KeyError(f"unknown remat policy {name!r}; one of {sorted(POLICIES)}")
-    fn = POLICIES[name]
-    return None if fn is None else fn()
+    keep = POLICIES[name]
+    if keep is None:
+        return None
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in keep else CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
 
 
 def maybe_remat(f: Callable, policy_name: str) -> Callable:
@@ -75,11 +61,10 @@ def maybe_remat(f: Callable, policy_name: str) -> Callable:
     ``f`` itself).  "full" keeps nothing, so it needs no policy on each op
     and runs as plain ``checkpoint``: the selective contexts watch every op
     from Python, which costs host time a launch."""
-    policy = get_policy(policy_name)
-    if policy is None:
+    if get_policy(policy_name) is None:
         return f
-    kwargs = {} if policy_name == "full" else {
-        "context_fn": functools.partial(create_selective_checkpoint_contexts, policy)}
+    kwargs = {} if not POLICIES[policy_name] else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, get_policy(policy_name))}
 
     def run(*args):
         return checkpoint(f, *args, use_reentrant=False, **kwargs)

@@ -2,12 +2,12 @@
 
 The reference gets several devices in one process from
 ``--xla_force_host_platform_device_count``; ``torch.distributed`` needs one
-process per rank.  :func:`run_world` spawns them, joins them in a process
-group (gloo by default) initialised from a file store in a temporary
-directory, runs ``fn(rank, world_size, *args)`` on each and returns the
-results by rank.  Everything sent to a rank and back is pickled: pass plain
-values and return numpy arrays or host tensors.  With one card, the ranks of
-a gloo world share it; NCCL needs a card a rank.
+process per rank.  :func:`run_world` spawns them, joins them in a gloo
+process group initialised from a file store in a temporary directory, runs
+``fn(rank, world_size, *args)`` on each and returns the results by rank.
+Everything sent to a rank and back is pickled: pass plain values and return
+numpy arrays or host tensors.  With one card, the ranks share it: gloo
+allows that, NCCL needs a card a rank.
 """
 
 from __future__ import annotations
@@ -21,17 +21,14 @@ import time
 import traceback
 from typing import Callable
 
-import torch
 import torch.distributed as dist
 
 __all__ = ["run_world"]
 
 
-def _rank_main(fn, rank, world_size, store, timeout_s, backend, args, results):
+def _rank_main(fn, rank, world_size, store, timeout_s, args, results):
     try:
-        if backend == "nccl":
-            torch.cuda.set_device(rank % torch.cuda.device_count())
-        dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                                 world_size=world_size,
                                 timeout=datetime.timedelta(seconds=timeout_s))
         try:
@@ -44,8 +41,7 @@ def _rank_main(fn, rank, world_size, store, timeout_s, backend, args, results):
         raise
 
 
-def run_world(fn: Callable, world_size: int, *args, timeout: float = 120.0,
-              backend: str = "gloo") -> list:
+def run_world(fn: Callable, world_size: int, *args, timeout: float = 120.0) -> list:
     """``[fn(rank, world_size, *args) for each rank]``, each in its own process.
 
     ``fn`` must be importable by name (a module-level function).  Raises
@@ -58,7 +54,7 @@ def run_world(fn: Callable, world_size: int, *args, timeout: float = 120.0,
         results = ctx.Queue()
         procs = [ctx.Process(target=_rank_main, daemon=True,
                              args=(fn, rank, world_size, os.path.join(tmp, "store"),
-                                   timeout, backend, args, results))
+                                   timeout, args, results))
                  for rank in range(world_size)]
         for p in procs:
             p.start()

@@ -14,7 +14,10 @@ dim ``model`` takes), which the reference cuts by layer and the port keeps
 whole over ``data``.
 
 :func:`zero1_piece` and :func:`zero1_join` take a tensor of a parameter's
-local layout to a rank's piece of state and back.
+local layout to a rank's piece of state and back, for the layout
+:func:`zero1_from_params` gives, the one the trainer keeps.
+:func:`zero1_spec` and :func:`zero1_shardings` are the reference's layout
+without regard to the parameter's, kept for its specs and byte counts.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from .collectives import raw_all_gather
-from .sharding import Spec, gather_tensor, shard_tensor, spec_axes
+from .sharding import Spec, spec_axes
 
 __all__ = ["zero1_spec", "zero1_shardings", "zero1_from_params", "zero1_piece", "zero1_join"]
 
@@ -84,8 +87,9 @@ def zero1_from_params(param_specs: Dict[str, Spec], shapes: Dict[str, Tuple[int,
 
 
 def _extra(zspec: Spec, pspec: Spec):
-    """``[(dim, axes)]`` that the state cuts beyond the parameter's own cut,
-    or None where the state's layout is not the parameter's refined."""
+    """``[(dim, axes)]`` that the state cuts beyond the parameter's own cut.
+    Raises where the state's layout does not refine the parameter's, as only
+    :func:`zero1_from_params`'s does."""
     out = []
     for d in range(max(len(zspec), len(pspec))):
         z = zspec[d] if d < len(zspec) else None
@@ -93,19 +97,16 @@ def _extra(zspec: Spec, pspec: Spec):
         if z == p:
             continue
         if p is not None:
-            return None
+            raise ValueError(f"state spec {zspec} does not refine the parameter's {pspec}")
         out.append((d, z))
     return out
 
 
 def zero1_piece(local: torch.Tensor, pspec: Spec, zspec: Spec, mesh) -> torch.Tensor:
     """This rank's piece of state from ``local``, a tensor in the parameter's
-    layout (a view where the state refines that layout)."""
-    extra = _extra(zspec, pspec)
-    if extra is None:
-        return shard_tensor(gather_tensor(local, pspec, mesh), zspec, mesh)
+    layout: a view of it."""
     out = local
-    for d, axes in extra:
+    for d, axes in _extra(zspec, pspec):
         n, i = mesh.axis_size(axes), mesh.index(axes)
         step = out.shape[d] // n
         out = out.narrow(d, i * step, step)
@@ -114,10 +115,7 @@ def zero1_piece(local: torch.Tensor, pspec: Spec, zspec: Spec, mesh) -> torch.Te
 
 def zero1_join(piece: torch.Tensor, pspec: Spec, zspec: Spec, mesh) -> torch.Tensor:
     """The tensor in the parameter's layout from every rank's piece."""
-    extra = _extra(zspec, pspec)
-    if extra is None:
-        return shard_tensor(gather_tensor(piece, zspec, mesh), pspec, mesh)
     out = piece
-    for d, axes in extra:
+    for d, axes in _extra(zspec, pspec):
         out = raw_all_gather(out, mesh, axes, d)
     return out

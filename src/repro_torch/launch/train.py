@@ -94,13 +94,7 @@ def _rank(rank: int, world: int, args: dict) -> list:
 
 
 def _train(args: argparse.Namespace, cfg, mesh=None) -> list:
-    main_rank = mesh is None or mesh.rank == 0
     model = Model(cfg, device=args.device)
-    if main_rank:
-        print(f"[train] {cfg.name}: {model.n_params() / 1e6:.1f}M params "
-              f"({model.n_active_params() / 1e6:.1f}M active) on {model.device}"
-              + (f", mesh {mesh.shape}" if mesh is not None else ""))
-
     tcfg = TrainConfig(
         microbatches=args.microbatches,
         remat_policy=args.remat,
@@ -109,6 +103,11 @@ def _train(args: argparse.Namespace, cfg, mesh=None) -> list:
     )
     trainer = Trainer(model, tcfg, mesh=mesh, ckpt_dir=args.ckpt_dir,
                       ckpt_every=args.ckpt_every)
+    main_rank = trainer.is_main
+    if main_rank:
+        print(f"[train] {cfg.name}: {model.n_params() / 1e6:.1f}M params "
+              f"({model.n_active_params() / 1e6:.1f}M active) on {model.device}"
+              + (f", mesh {mesh.shape}" if mesh is not None else ""))
     if not trainer.maybe_restore():
         trainer.init_state(torch.Generator(device=model.device).manual_seed(0))
         if main_rank:

@@ -5,7 +5,8 @@ gradients by autograd (through the rmsnorm backward kernel on the card),
 microbatched accumulation into float32 buffers, remat by name, and AdamW on
 float32 master weights.  The model's parameters are updated in place, and so
 is the optimizer state: what the reference's buffer donation
-(``donate_state``) buys, the port always does.
+(``donate_state``) buys, the port always does, so it has no such option and
+a caller who needs the old state copies it first.
 
 With a mesh (``launch/mesh.py``, bound in a running world) the step is the
 reference's sharded one, each rank computing its part:
@@ -17,10 +18,11 @@ reference's sharded one, each rank computing its part:
   - the loss of the whole batch on every rank; each rank's gradients, its
     rows' part, summed over the batch axes for a parameter the batch axes do
     not shard (a sharded one's sum happens in its gather's backward);
-  - ZeRO-1: each rank keeps and updates its piece of the optimizer state
-    (``zero1_from_params``, or ``zero1_shardings`` without
-    ``zero1_param_aligned``), the clipping norm is the whole model's, and
-    each new parameter shard is gathered from the pieces.
+  - ZeRO-1: each rank keeps and updates its piece of the optimizer state,
+    laid out as its parameter shard cut again over ``zero1_axes``
+    (``zero1_from_params``, the reference's default), the clipping norm is
+    the whole model's, and each new parameter shard is gathered from the
+    pieces.
 
 ``Trainer`` adds checkpoint/restart on (simulated) failures, as the
 reference's does.  Under a mesh its checkpoints hold whole tensors, gathered
@@ -41,7 +43,7 @@ from ..checkpoint import CheckpointManager
 from ..distributed.collectives import raw_all_reduce
 from ..distributed.sharding import (DEFAULT_RULES, ShardingRules, gather_tensor,
                                     param_shardings, shard_params, shard_tensor, spec_axes)
-from ..distributed.zero import zero1_from_params, zero1_join, zero1_piece, zero1_shardings
+from ..distributed.zero import zero1_from_params, zero1_join, zero1_piece
 from ..ft import SimulatedFailure, StragglerMonitor
 from ..models import Model
 from ..optim import AdamWConfig, adamw_init, adamw_step
@@ -57,9 +59,6 @@ class TrainConfig:
     z_loss_weight: float = 1e-4
     optim: AdamWConfig = field(default_factory=AdamWConfig)
     zero1_axes: Tuple[str, ...] = ("data",)
-    zero1_model_dim: bool = False     # zero1_shardings' option (not param-aligned)
-    zero1_param_aligned: bool = True  # states follow the parameter's layout
-    donate_state: bool = True         # always so here: updates are in place
 
 
 def build_train_step(model: Model, tcfg: TrainConfig, mesh=None,
@@ -153,10 +152,7 @@ def build_train_step(model: Model, tcfg: TrainConfig, mesh=None,
         pspecs = model.shardings
         shapes = {k: s.shape for k, s in model.param_specs().items()}
         zaxes = tuple(a for a in (*tcfg.zero1_axes, "pod") if a in mesh.shape)
-        if tcfg.zero1_param_aligned:
-            zspecs = zero1_from_params(pspecs, shapes, mesh, zaxes)
-        else:
-            zspecs = zero1_shardings(shapes, mesh, zaxes, model_dim=tcfg.zero1_model_dim)
+        zspecs = zero1_from_params(pspecs, shapes, mesh, zaxes)
         batch = mesh.batch_axes
         # gradients the batch axes do not shard: each rank holds its rows' part
         dp_sum = [k for k in params if not set(spec_axes(pspecs[k])) & set(batch)]
