@@ -196,9 +196,6 @@ ATTENTION_HEADS = {"gemma3_27b": (32, 16, 128), "qwen2_vl_7b": (28, 4, 128),
 ATTENTION_CHUNKS = (16, 32, 64, 128)  # the measured plan variants at the serve shape
 
 
-# a wrapper that makes two launches a call: the second kernel's device rows
-# add their time to the first's label and are not counted as launches
-COMPANION_KERNELS = {"rmsnorm_bwd_dgamma": "rmsnorm_bwd"}
 # the training paths (slice 4a): gemma3-1b, the main path, B 4 x S 1024 in 2
 # microbatches, 8 AdamW steps; xlstm-125m, repro.launch.train's defaults (B 8
 # x S 128, one microbatch), 6 steps.  Both at full width and depth, the data's
@@ -218,7 +215,9 @@ TRAIN_DATA_VOCAB = 4096
 TRAIN_PARITY_ARCHS = ("gemma3-1b", "xlstm-125m", "zamba2-2.7b", "minicpm3-4b", "olmoe-1b-7b")
 TRAIN_PARITY_TOL = 1e-4  # of each gradient tensor's largest entry; of the loss, relative
 G_NOISE = 1e-5  # a nonzero float32 gradient below this is near-cancelling noise (AdamW)
-RMSNORM_BWD_SHAPES = ((2048, 1152), (1024, 768))  # the two training paths' rows x D
+# the training paths' rows x D: gemma3-1b's microbatch, a rank of its sharded
+# step, xlstm-125m's batch
+RMSNORM_BWD_SHAPES = ((2048, 1152), (1024, 1152), (1024, 768))
 # the sharded substrate (slice 4b): gemma3-1b at full width and depth on a
 # (2, 2) mesh of 4 ranks sharing the card (a gloo group exchanging through the
 # host), the train phase's run (TRAIN_RUNS) for SHARDED_STEPS steps from the
@@ -405,7 +404,7 @@ def _gemv_controls(a: torch.Tensor, x: torch.Tensor, y_plain: torch.Tensor) -> d
 
 
 def _profile_calls(calls: dict, operands: list, reps: int = 20,
-                   attempts: int = PROFILE_ATTEMPTS) -> dict:
+                   attempts: int = PROFILE_ATTEMPTS, launch_rows: dict | None = None) -> dict:
     """Device ms per call of each labelled call, from one torch.profiler run.
 
     ``calls`` maps a label to a function of one operand: a kernel of the port
@@ -415,12 +414,13 @@ def _profile_calls(calls: dict, operands: list, reps: int = 20,
     operand cold.  Device rows of the port's kernels are matched by name,
     memsets (the kernels' counters) apart, and every other device row is the
     library call's.  Also returns ``"memset"``: memset ms per profiled call of
-    a port kernel.  A run in which the profiler missed launches (it can drop
+    a port kernel.  ``launch_rows``, if given, receives for each port kernel
+    its device rows of the returned profile: kernel, ms per launch, launches
+    per call.  A run in which the profiler missed launches (it can drop
     activity records) is made again after a pause, up to ``attempts`` runs in
     all.
     """
     ours = [k for k in calls if k != "library"]
-    companions = {c: k for c, k in COMPANION_KERNELS.items() if k in ours}
 
     def warmup():
         for fn in calls.values():
@@ -442,16 +442,20 @@ def _profile_calls(calls: dict, operands: list, reps: int = 20,
         rows, _ = _device_ms_per_launch(averages, ())
         out = {k: 0.0 for k in calls}
         out["memset"] = 0.0
+        if launch_rows is not None:
+            launch_rows.clear()
         seen = {}
         total_us = {}
         for key, us, n in rows:
             mine = next((k for k in ours if f"::{k}_kernel<" in key), None)
-            second = next((k for c, k in companions.items() if f"::{c}_kernel<" in key), None)
             if mine is not None:  # a kernel may show under more than one key
                 seen[mine] = seen.get(mine, 0) + n
                 total_us[mine] = total_us.get(mine, 0.0) + us
-            elif second is not None:  # the second launch of a call: time, no count
-                total_us[second] = total_us.get(second, 0.0) + us
+                if launch_rows is not None:
+                    launch_rows.setdefault(mine, []).append(
+                        {"kernel": key.replace("(anonymous namespace)::", "").split("(")[0],
+                         "device_ms_per_launch": us / 1e3 / n,
+                         "launches_per_call": n / reps})
             elif "memset" in key.lower():
                 out["memset"] += us / 1e3 / (reps * len(ours))
             elif "library" in calls:
@@ -770,11 +774,13 @@ def _rmsnorm_bwd_at(gen: torch.Generator, rows: int, d: int) -> dict:
     """The rmsnorm backward at a training path's shape, x, g, dy [rows, d]
     bf16: checked against its plain version (dx and dgamma), the same bits
     over 5 launches, a faulty control (a bf16 dgamma accumulator) the
-    tolerance must reject; timed by events beside the plain version and the
-    backward of F.rms_norm with weight 1 + gamma (autograd, the same dx and
-    dgamma), and by device time per call of both in one profile."""
+    tolerance must reject, the tickets back at 0; timed by events beside the
+    plain version and the backward of F.rms_norm with weight 1 + gamma
+    (autograd, the same dx and dgamma), and by device time per call of both,
+    and of each launch, in one profile."""
     from repro_torch.kernels.gemv import sm_count
-    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_bwd_plan, rmsnorm_bwd_ref
+    from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_cuda, rmsnorm_bwd_plan, rmsnorm_bwd_ref,
+                                             rmsnorm_bwd_workspace)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
@@ -790,6 +796,10 @@ def _rmsnorm_bwd_at(gen: torch.Generator, rows: int, d: int) -> dict:
         again = rmsnorm_bwd_cuda(x, g, dy)
         if not (torch.equal(again[0], dx) and torch.equal(again[1], dg)):
             raise AssertionError(f"rmsnorm backward [{rows}, {d}]: bits differ between launches")
+    _, tickets = rmsnorm_bwd_workspace(x.device, torch.cuda.current_stream().cuda_stream)
+    if tickets.tolist() != [0, 0]:
+        raise AssertionError(f"rmsnorm backward [{rows}, {d}]: tickets {tickets.tolist()} not "
+                             f"back at 0 after a call")
     control = _worst_ratio(_dgamma_bf16_accumulator(x, g, dy), want_dg)
     if control <= 1.0:
         raise AssertionError(f"tolerance {BF16_TOL} lets a bf16 dgamma accumulator pass "
@@ -805,13 +815,15 @@ def _rmsnorm_bwd_at(gen: torch.Generator, rows: int, d: int) -> dict:
     # x, g and dy read once, dx written once; gamma read and dgamma written once
     nbytes = 3 * rows * d * 2 + 2 * d * 2
     b_ms, b_by = bound_ms(nbytes, 12 * rows * d, "float32")
+    launch_rows = {}
     same_run = _profile_calls({"rmsnorm_bwd": lambda _: rmsnorm_bwd_cuda(x, g, dy),
-                               "library": library}, [None])
-    per_cta = rmsnorm_bwd_plan(rows, sm_count(x.device))
+                               "library": library}, [None], launch_rows=launch_rows)
+    plan = rmsnorm_bwd_plan(rows, d, 2, sm_count(x.device))
     return {
         "shape": [rows, d], "dtype": "bfloat16",
-        "plan": {"rows_per_cta": per_cta, "ctas": -(-rows // per_cta),
-                 "workspace_bytes": -(-rows // per_cta) * d * 4},
+        "plan": {**plan.__dict__, "threads": plan.threads(d, 2),
+                 "workspace_bytes": plan.ctas * d * 4 + 8},
+        "device_ms_by_launch": launch_rows["rmsnorm_bwd"],
         "max_abs_err": max((dx.float() - want_dx).abs().max().item(),
                            (dg.float() - want_dg).abs().max().item()),
         "worst_ratio_dx": _worst_ratio(dx, want_dx), "worst_ratio_dgamma": _worst_ratio(dg, want_dg),

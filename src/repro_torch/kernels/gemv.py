@@ -101,12 +101,17 @@ def sm_count(device: torch.device) -> int:
 
 
 def gemv_ref(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``y = A @ x``: a [M, K], x [K, N] -> [M, N], float32 accumulation, in a's dtype.
+    """``y = A @ x``: a [M, K], x [K, N] -> [M, N], in a's dtype.
 
-    A is read row-major whatever its strides, so the order of the sums (and
-    the last bits of a float32 result) do not depend on A's layout.
+    The sums are taken in float64 and rounded once.  A product of two float32
+    (or bf16) elements is exact in float64, and a float64 sum of K of them is
+    within about K * 2^-53 of the exact one, far inside a float32 ulp: so any
+    order a BLAS, its blocking or the host's thread count gives the sums
+    rounds to the same result (but for a sum that close to a rounding
+    boundary), whatever A's layout.  A float32 sum's last bits would not: one
+    CPU BLAS misses the float64 answer by 2e-4 at [256, 2048].
     """
-    return (a.float().contiguous() @ x.float()).to(a.dtype)
+    return (a.double() @ x.double()).to(a.dtype)
 
 
 def check_operands(name: str, a: torch.Tensor, x: torch.Tensor) -> tuple[int, int]:

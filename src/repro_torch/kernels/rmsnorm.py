@@ -11,7 +11,10 @@ held against the kernel on the card.
 The backward (:func:`rmsnorm_bwd_cuda`, the same source) is the port's own
 kernel: the reference differentiates ``rms_norm`` through XLA.  It gives the
 gradients that JAX's autodiff of ``repro/models/common.py::rms_norm`` gives
-(:func:`rmsnorm_bwd_ref` in plain PyTorch), dgamma the same bits every run.
+(:func:`rmsnorm_bwd_ref` in plain PyTorch), dgamma the same bits every run,
+in one launch: each CTA takes a run of rows in blocks loaded at once, and
+the last CTAs to finish sum the CTAs' dgamma rows (:func:`rmsnorm_bwd_plan`,
+pure and CPU-tested, chooses the blocks, the runs and the reducers).
 :class:`RMSNormFunction` runs the forward kernel and saves ``(x, gamma)``
 for the backward kernel; ``kernels.ops.rmsnorm`` sends a CUDA tensor through
 it whenever autograd records.
@@ -21,17 +24,22 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import torch
 
 from . import build
 
 __all__ = ["rmsnorm_cuda", "rmsnorm_ref", "rmsnorm_plan", "rmsnorm_bwd_cuda", "rmsnorm_bwd_ref",
-           "rmsnorm_bwd_plan", "RMSNormFunction"]
+           "rmsnorm_bwd_plan", "RMSNormBwdPlan", "rmsnorm_bwd_workspace", "RMSNormFunction"]
 
 MAX_THREADS = 256      # threads a row (kMaxThreads in csrc/rmsnorm.cu)
 VECTORS = (1, 2, 4, 8)  # 16-byte vectors of x a thread may hold
-BWD_CTAS_PER_SM = 2    # the backward's CTAs an SM aims at (rmsnorm_bwd_plan)
+# the backward's, as csrc/rmsnorm.cu has them
+BWD_BLOCKS = (1, 2, 4)  # rows a block may take
+BWD_BLOCK_VECTORS = 4  # vectors of x a thread loads a block, past one row
+BWD_CTAS_PER_SM = 2    # CTAs an SM the grid plans for before a CTA takes a second block
+BWD_REDUCERS = 64      # the last CTAs to finish, which sum dgamma, at most
 
 
 def rmsnorm_ref(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -59,11 +67,48 @@ def rmsnorm_bwd_ref(x: torch.Tensor, gamma: torch.Tensor, g: torch.Tensor,
     return dx.to(x.dtype), dgamma.to(gamma.dtype)
 
 
-def rmsnorm_bwd_plan(rows: int, sms: int) -> int:
-    """Rows a CTA of the backward takes: consecutive runs that spread the rows
-    over about ``BWD_CTAS_PER_SM`` CTAs an SM.  [2048, D] on 132 SMs: 8 rows,
-    256 CTAs."""
-    return max(1, -(-rows // (BWD_CTAS_PER_SM * sms)))
+@dataclass(frozen=True)
+class RMSNormBwdPlan:
+    """One launch of the backward: ``ctas`` CTAs, each taking ``rows_per_cta``
+    consecutive rows (the last ones fewer or none) in blocks of ``block`` rows,
+    ``nv`` 16-byte vectors of a row a thread; the last ``reducers`` CTAs to
+    finish sum dgamma, a chunk of columns each."""
+
+    ctas: int
+    rows_per_cta: int
+    block: int
+    nv: int
+    reducers: int
+
+    def threads(self, d: int, element_size: int) -> int:
+        return (-(-(d * element_size // 16) // self.nv) + 31) // 32 * 32
+
+
+@functools.lru_cache(maxsize=256)
+def rmsnorm_bwd_plan(rows: int, d: int, element_size: int, sms: int) -> RMSNormBwdPlan:
+    """The backward's launch for ``rows`` rows of ``d`` elements; pure, so it
+    runs (and is tested) on the CPU.
+
+    A thread holds the forward's ``nv`` vectors of a row (:func:`rmsnorm_plan`);
+    a block is the most rows, of 1, 2, 4, whose loads a thread holds at once
+    within ``BWD_BLOCK_VECTORS`` (one row where a row alone passes it); a CTA
+    takes one block of consecutive rows, or more where the grid would pass
+    ``BWD_CTAS_PER_SM`` CTAs an SM.  The last ``BWD_REDUCERS`` CTAs to finish
+    (fewer where the grid or the row is smaller: at least 4 columns each) sum
+    dgamma.  [2048, 1152] bf16 on 132 SMs: nv 1, blocks of 4 rows, 8 rows a
+    CTA, 256 CTAs, 64 reducers of 20 columns (the last of 12).  The blocks and
+    runs were chosen by a sweep on the card (``tools/rmsnorm_bwd_launches.py
+    --plans``; PERF.md).
+    """
+    nv = rmsnorm_plan(d, element_size)
+    if rows < 1 or sms < 1 or d * element_size % 16:
+        raise ValueError(f"rmsnorm_bwd_plan takes rows >= 1, sms >= 1 and rows of whole "
+                         f"16-byte vectors, got rows={rows}, d={d}, sms={sms}")
+    block = max([1] + [b for b in BWD_BLOCKS if b * nv <= BWD_BLOCK_VECTORS])
+    per_cta = block * -(-rows // (block * BWD_CTAS_PER_SM * sms))
+    ctas = -(-rows // per_cta)
+    return RMSNormBwdPlan(ctas=ctas, rows_per_cta=per_cta, block=block, nv=nv,
+                          reducers=min(ctas, BWD_REDUCERS, d // 4))
 
 
 def rmsnorm_plan(d: int, element_size: int) -> int:
@@ -137,36 +182,58 @@ rmsnorm_cuda.launches = 0
 @functools.cache
 def _bwd_launch_fn():
     fn = build.load("rmsnorm").rmsnorm_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_float] + \
+        [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+_BWD_WORKSPACES: dict = {}
+
+
+def rmsnorm_bwd_workspace(device: torch.device, stream: int,
+                          floats: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(ws, tickets)`` of the backward's launches on one CUDA stream: float32
+    room for the CTAs' dgamma rows, grown to at least ``floats``, and two
+    int32 tickets (the CTAs done, the reducers past their wait), zeroed once
+    when made; each launch leaves them at 0.  Kept a stream, so that launches
+    on two streams never share them."""
+    key = (device, stream)
+    ws, tickets = _BWD_WORKSPACES.get(key, (None, None))
+    if tickets is None:
+        tickets = torch.zeros(2, dtype=torch.int32, device=device)
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(max(floats, 1), dtype=torch.float32, device=device)
+    _BWD_WORKSPACES[key] = (ws, tickets)
+    return ws, tickets
+
+
 def rmsnorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor, g: torch.Tensor,
-                     eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+                     eps: float = 1e-6, *,
+                     plan: RMSNormBwdPlan | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the backward on CUDA tensors: ``(dx, dgamma)`` for the output's
     gradient ``g`` (x's shape and dtype).
 
-    Takes what :func:`rmsnorm_cuda` takes, g too.  Two launches, counted as
-    one call in ``rmsnorm_bwd_cuda.launches``: the rows (dx, and each CTA's
-    float32 dgamma partial in a workspace), then the partials summed in CTA
-    order.  Raises on anything else, and on a launch the runtime refuses.
+    Takes what :func:`rmsnorm_cuda` takes, g too.  One launch, counted in
+    ``rmsnorm_bwd_cuda.launches``, under ``plan`` (default
+    :func:`rmsnorm_bwd_plan`).  Raises on anything else, on a plan that does
+    not cover the rows, and on a launch the runtime refuses.
     """
     from .gemv import sm_count
 
-    nv = _check("rmsnorm_bwd_cuda", x, gamma, g)
+    _check("rmsnorm_bwd_cuda", x, gamma, g)
     D = x.shape[-1]
     rows = x.numel() // D
-    per_cta = rmsnorm_bwd_plan(rows, sm_count(x.device))
+    if plan is None:
+        plan = rmsnorm_bwd_plan(rows, D, x.element_size(), sm_count(x.device))
     dx = torch.empty_like(x)
     dgamma = torch.empty_like(gamma)
-    partial = torch.empty((-(-rows // per_cta), D), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    ws, tickets = rmsnorm_bwd_workspace(x.device, stream, plan.ctas * D)
     status = _bwd_launch_fn()(x.data_ptr(), gamma.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                              dgamma.data_ptr(), partial.data_ptr(), rows, D, float(eps),
-                              build.DTYPE_CODE[x.dtype], nv, per_cta, stream)
+                              dgamma.data_ptr(), ws.data_ptr(), tickets.data_ptr(), rows, D,
+                              float(eps), build.DTYPE_CODE[x.dtype], plan.nv, plan.block,
+                              plan.rows_per_cta, plan.ctas, plan.reducers, stream)
     if status != 0:
         raise RuntimeError(f"rmsnorm backward kernel launch failed with CUDA error {status}")
     rmsnorm_bwd_cuda.launches += 1

@@ -11,8 +11,10 @@ rtol 1e-2, atol 4e-3, about 5x the kernel's own rounding of its float32 result
 to bf16 (relative error <= 2^-9).  That is tighter than the reference's 3e-2,
 which would pass an attention that dropped a slot or accumulated in bf16
 (chip_smoke.py reads such controls against it).  The gemv kernels take the
-same tolerances; their float32 sums are blocked, as the plain version's are.
+same tolerances against the plain version's float64 sums, rounded once.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -24,7 +26,8 @@ from repro_torch.kernels.decode_attention import (DecodeAttentionPlan, decode_at
                                                   decode_attention_plan)
 from repro_torch.kernels.gemv import GemvPlan, gemv_cuda, gemv_plan
 from repro_torch.kernels.gemv_tiles import gemv_tiles_cuda, remote_first_order, tile_plan
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+from repro_torch.kernels.rmsnorm import (RMSNormBwdPlan, rmsnorm_bwd_cuda, rmsnorm_bwd_ref,
+                                         rmsnorm_bwd_workspace, rmsnorm_cuda)
 from repro_torch.models import Model, moe
 from repro_torch.models.model import decode_launches
 from repro_torch.serving import ServeConfig, ServeEngine
@@ -524,9 +527,11 @@ def test_gemv_wrappers_refuse_plans_that_do_not_fit(cuda):
 
 
 # the rmsnorm backward: the training shapes (gemma3-1b's microbatch of 2 x
-# 1024 tokens at D 1152, xlstm-125m's 8 x 128 at D 768), rows that leave the
-# last CTA short, and float32 at the parity configs' widths
+# 1024 tokens at D 1152, a rank of its sharded step, xlstm-125m's 8 x 128 at
+# D 768), rows that leave the last CTA a short run (2044: 12 of 16), and
+# float32 at the parity configs' widths
 RMSNORM_BWD_CASES = [((2048, 1152), "bfloat16"), ((1024, 768), "bfloat16"),
+                     ((1024, 1152), "bfloat16"), ((2044, 1152), "bfloat16"),
                      ((2, 1024, 1152), "float32"), ((1000, 2560), "bfloat16"),
                      ((7, 64), "float32"), ((33, 256), "float32"), ((3, 5, 128), "bfloat16"),
                      ((300, 8192), "float32"), ((17, 16384), "bfloat16")]
@@ -534,8 +539,6 @@ RMSNORM_BWD_CASES = [((2048, 1152), "bfloat16"), ((1024, 768), "bfloat16"),
 
 @pytest.mark.parametrize("shape,dtype", RMSNORM_BWD_CASES)
 def test_rmsnorm_bwd_kernel_matches_plain_and_repeats_its_bits(cuda, shape, dtype):
-    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_bwd_ref
-
     dt = DTYPES[dtype]
     x = _randn(shape, dt, cuda, 20)
     g = _randn(shape[-1:], dt, cuda, 21) * 0.2
@@ -553,9 +556,78 @@ def test_rmsnorm_bwd_kernel_matches_plain_and_repeats_its_bits(cuda, shape, dtyp
         assert torch.equal(again[0], dx) and torch.equal(again[1], dg)
 
 
+# explicit plans: the widest rows (bf16 D 16384, float32 8192, a row a block)
+# with one block a CTA and with many, one reducer and the most; blocks of 4
+# rows, 18 and a short one a CTA; blocks of 2 rows at 2 vectors a thread,
+# the last CTA short or empty; a reducer past the columns
+RMSNORM_BWD_PLANS = [
+    ((64, 16384), "bfloat16", RMSNormBwdPlan(ctas=64, rows_per_cta=1, block=1, nv=8, reducers=64)),
+    ((64, 16384), "bfloat16", RMSNormBwdPlan(ctas=16, rows_per_cta=4, block=1, nv=8, reducers=1)),
+    ((40, 8192), "float32", RMSNormBwdPlan(ctas=40, rows_per_cta=1, block=1, nv=8, reducers=8)),
+    ((40, 8192), "float32", RMSNormBwdPlan(ctas=8, rows_per_cta=5, block=1, nv=8, reducers=8)),
+    ((600, 768), "bfloat16", RMSNormBwdPlan(ctas=8, rows_per_cta=75, block=4, nv=1, reducers=5)),
+    ((500, 2560), "bfloat16", RMSNormBwdPlan(ctas=16, rows_per_cta=32, block=2, nv=2, reducers=16)),
+    ((41, 4096), "bfloat16", RMSNormBwdPlan(ctas=8, rows_per_cta=6, block=2, nv=2, reducers=8)),
+    ((48, 64), "float32", RMSNormBwdPlan(ctas=12, rows_per_cta=4, block=4, nv=1, reducers=12)),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,plan", RMSNORM_BWD_PLANS)
+def test_rmsnorm_bwd_kernel_under_explicit_plans(cuda, shape, dtype, plan):
+    dt = DTYPES[dtype]
+    x = _randn(shape, dt, cuda, 26)
+    g = _randn(shape[-1:], dt, cuda, 27) * 0.2
+    dy = _randn(shape, dt, cuda, 28)
+    dx, dg = rmsnorm_bwd_cuda(x, g, dy, plan=plan)
+    want_dx, want_dg = rmsnorm_bwd_ref(x.float(), g.float(), dy.float())
+    torch.testing.assert_close(dx.float(), want_dx, **TOL[dtype])
+    torch.testing.assert_close(dg.float(), want_dg, **TOL[dtype])
+    again = rmsnorm_bwd_cuda(x, g, dy, plan=plan)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dg)
+
+
+def test_rmsnorm_bwd_refuses_plans_that_do_not_fit_or_miss_rows(cuda):
+    x = torch.zeros(64, 16384, dtype=torch.bfloat16, device=cuda)
+    g = torch.zeros(16384, dtype=torch.bfloat16, device=cuda)
+    plan = RMSNormBwdPlan(ctas=16, rows_per_cta=4, block=1, nv=8, reducers=16)
+    for bad in (dict(rows_per_cta=3),   # 48 of the 64 rows
+                dict(block=2),          # 16 vectors a thread a block
+                dict(nv=4),             # 512 threads a row
+                dict(reducers=0),
+                dict(reducers=17)):     # more reducers than CTAs
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            rmsnorm_bwd_cuda(x, g, x, plan=dataclasses.replace(plan, **bad))
+
+
+def test_rmsnorm_bwd_makes_one_launch_and_leaves_its_tickets_at_zero(cuda):
+    """One device kernel a call, no memset; both tickets (the CTAs done, the
+    reducers past their wait) are back at 0 after it, on each stream."""
+    x = _randn((2048, 1152), torch.bfloat16, cuda, 29)
+    g = _randn((1152,), torch.bfloat16, cuda, 30) * 0.2
+    dy = _randn((2048, 1152), torch.bfloat16, cuda, 31)
+    rmsnorm_bwd_cuda(x, g, dy)  # the stream's workspace is made (and zeroed) once
+    torch.cuda.synchronize()
+    kernels = []
+    for _ in range(3):  # the profiler may drop a record; it never adds one
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            rmsnorm_bwd_cuda(x, g, dy)
+            torch.cuda.synchronize()
+        kernels = [(e.key, e.count) for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        if kernels:
+            break
+    assert len(kernels) == 1 and "rmsnorm_bwd_kernel" in kernels[0][0] and kernels[0][1] == 1
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        rmsnorm_bwd_cuda(x, g, dy)
+    torch.cuda.synchronize()
+    for s in (torch.cuda.current_stream(), stream):
+        _, tickets = rmsnorm_bwd_workspace(x.device, s.cuda_stream)
+        assert tickets.tolist() == [0, 0]
+
+
 def test_rmsnorm_autograd_on_the_card_goes_through_both_kernels(cuda):
     from repro_torch.kernels import ops
-    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
 
     x = _randn((2, 16, 1152), torch.bfloat16, cuda, 23).requires_grad_(True)
     g = (_randn((1152,), torch.bfloat16, cuda, 24) * 0.2).requires_grad_(True)
@@ -576,7 +648,6 @@ def test_rmsnorm_autograd_on_the_card_goes_through_both_kernels(cuda):
 def test_reduced_model_gradients_on_the_card_match_the_cpu(cuda, arch):
     """float32: the same ops, sums in other orders (cuBLAS, the kernels);
     each gradient within 1e-4 of its tensor's largest entry."""
-    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
 
     cfg = reduced(get_config(arch)).with_(param_dtype=torch.float32)
     gpu = Model(cfg).init(torch.Generator().manual_seed(1))

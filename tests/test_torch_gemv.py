@@ -64,6 +64,22 @@ def test_gemv_ref_matches_pallas(M, K, N, dtype, layout):
     assert torch.equal(y_port, ref.gemv_ref(ta.contiguous(), tx))
 
 
+@pytest.mark.parametrize("M,K,N", SWEEP)
+def test_gemv_ref_does_not_depend_on_the_thread_count(M, K, N):
+    """float64 sums rounded once: one thread and the default count give the
+    same bits, and both meet 3e-5 against Pallas."""
+    ja, jx, ta, tx = _inputs(M, K, N, "float32", seed=5)
+    threads = torch.get_num_threads()
+    try:
+        torch.set_num_threads(1)
+        alone = ref.gemv_ref(ta, tx)
+    finally:
+        torch.set_num_threads(threads)
+    assert torch.equal(ref.gemv_ref(ta, tx), alone)
+    np.testing.assert_allclose(_np(alone), _np(jops.gemv(ja, jx, bm=64, bk=256)),
+                               **_tol("float32"))
+
+
 @pytest.mark.parametrize("n_dev,my_dev", SCHEDULES)
 def test_gemv_tiles_values_and_schedule_match_pallas(n_dev, my_dev):
     ja, jx, ta, tx = _inputs(256, 1024, 1, "float32", seed=2)

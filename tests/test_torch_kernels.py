@@ -27,7 +27,8 @@ from repro.kernels import ref as jref
 from repro.models.common import rms_norm as jrms_norm
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
-from repro_torch.kernels.rmsnorm import (RMSNormFunction, rmsnorm_bwd_cuda, rmsnorm_bwd_plan,
+from repro_torch.kernels.rmsnorm import (BWD_BLOCK_VECTORS, BWD_BLOCKS, BWD_REDUCERS,
+                                         RMSNormFunction, rmsnorm_bwd_cuda, rmsnorm_bwd_plan,
                                          rmsnorm_bwd_ref, rmsnorm_cuda, rmsnorm_plan)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -250,11 +251,66 @@ def test_cpu_rmsnorm_is_differentiable_and_launches_nothing():
     assert (rmsnorm_cuda.launches, rmsnorm_bwd_cuda.launches) == before
 
 
-@pytest.mark.parametrize("rows,sms,per_cta", [(2048, 132, 8), (1024, 132, 4), (4, 132, 1),
-                                              (264, 132, 1), (265, 132, 2), (1, 1, 1)])
+@pytest.mark.parametrize("rows,sms,per_cta", [(2048, 132, 8), (1024, 132, 4), (4, 132, 4),
+                                              (264, 132, 4), (2113, 132, 12), (1, 1, 4)])
 def test_rmsnorm_bwd_plan_spreads_rows_over_two_ctas_an_sm(rows, sms, per_cta):
-    assert rmsnorm_bwd_plan(rows, sms) == per_cta
-    assert -(-rows // per_cta) <= 2 * sms
+    """Runs of whole blocks of consecutive rows over about two CTAs an SM."""
+    plan = rmsnorm_bwd_plan(rows, 1152, 2, sms)
+    assert plan.rows_per_cta == per_cta and per_cta % plan.block == 0
+    assert (plan.ctas - 1) * per_cta < rows <= plan.ctas * per_cta
+    assert plan.ctas <= 2 * sms or per_cta == plan.block
+
+
+# the training paths on 132 SMs (gemma3-1b's microbatch, a sharded rank,
+# xlstm-125m), a run that leaves the last CTA 4 rows, many rows, the widest
+# rows, a reducer past the columns; (ctas, rows a CTA, block, vectors a
+# thread, reducers, threads)
+BWD_PLANS = [
+    ((2048, 1152, 2), (256, 8, 4, 1, 64, 160)),
+    ((1024, 1152, 2), (256, 4, 4, 1, 64, 160)),
+    ((1024, 768, 2), (256, 4, 4, 1, 64, 96)),
+    ((2044, 1152, 2), (256, 8, 4, 1, 64, 160)),
+    ((65536, 1152, 2), (261, 252, 4, 1, 64, 160)),
+    ((1, 16384, 2), (1, 1, 1, 8, 1, 256)),
+    ((300, 8192, 4), (150, 2, 1, 8, 64, 256)),
+    ((1000, 2560, 2), (250, 4, 2, 2, 64, 160)),
+    ((48, 64, 4), (12, 4, 4, 1, 12, 32)),
+]
+
+
+@pytest.mark.parametrize("shape,want", BWD_PLANS, ids=[f"{r}x{d}x{e}" for (r, d, e), _ in BWD_PLANS])
+def test_rmsnorm_bwd_plan_pins(shape, want):
+    rows, d, esize = shape
+    plan = rmsnorm_bwd_plan(rows, d, esize, 132)
+    got = (plan.ctas, plan.rows_per_cta, plan.block, plan.nv, plan.reducers,
+           plan.threads(d, esize))
+    assert got == want
+
+
+@pytest.mark.parametrize("esize", [2, 4])
+@pytest.mark.parametrize("d", [64, 256, 768, 1152, 2048, 2560, 4096, 8192, 16384])
+@pytest.mark.parametrize("rows", [1, 7, 2044, 100_000])
+def test_rmsnorm_bwd_plan_covers_every_row_and_fits(rows, d, esize):
+    """Every width the kernel takes (bf16 to D 16384, float32 to 8192): what
+    csrc/rmsnorm.cu's rmsnorm_bwd_launch accepts, a block's loads within
+    BWD_BLOCK_VECTORS a thread (or one row), every row covered, no CTA idle."""
+    if d * esize > 32768:
+        with pytest.raises(ValueError):
+            rmsnorm_bwd_plan(rows, d, esize, 132)
+        return
+    plan = rmsnorm_bwd_plan(rows, d, esize, 132)
+    threads = plan.threads(d, esize)
+    assert 32 * (threads // 32 - 1) < -(-(d * esize // 16) // plan.nv) <= threads <= 256
+    assert plan.block in BWD_BLOCKS and (plan.block * plan.nv <= BWD_BLOCK_VECTORS
+                                         or plan.block == 1)
+    assert plan.rows_per_cta % plan.block == 0 and plan.ctas * plan.rows_per_cta >= rows
+    assert plan.reducers == min(plan.ctas, BWD_REDUCERS, d // 4)
+
+
+def test_rmsnorm_bwd_plan_refuses_what_the_kernel_does_not_take():
+    for rows, d, esize in [(0, 1152, 2), (4, 1150, 2), (4, 32776, 2)]:
+        with pytest.raises(ValueError):
+            rmsnorm_bwd_plan(rows, d, esize, 132)
 
 
 def test_rmsnorm_bwd_cuda_refuses_cpu_tensors():
