@@ -80,6 +80,21 @@ Phases, each printing one JSON line:
            launches a step and rank (106 / 106); per rank the peak memory
            beside its bytes of parameters, gradient buffers and ZeRO-1 state,
            and the bytes it hands each collective a step;
+  capture  the capture bridge: each rank's collective schedule of the sharded
+           phase's step 2, recorded as it ran, equals op for op (kind, dtype,
+           bytes, group size, mesh axes, order) the abstract capture of that
+           rank (full gemma3-1b on meta tensors, no world, the same mesh,
+           batch and microbatches), whose kernel calls are 106 / 106 a step;
+           the abstract parameter, gradient-buffer and ZeRO-1 bytes equal the
+           measured ones, the abstract peak beside max_memory_allocated; the
+           dry runs of gemma3-1b and olmoe-1b-7b x train_4k x single (per-kind
+           counts and bytes, the H100_SXM roofline terms, predict_step's
+           envelope, the trace's writes and span, host seconds); the one-card
+           train cell's compute_s + memory_s on H100_SXM beside the train
+           phase's device busy ms a step; and the card's bf16 8192^3 matmul
+           and device-to-device copy rates beside H100_SXM's 989 TFLOP/s and
+           3.35 TB/s.  Its seven abstract traces run at once, each in a
+           spawned process of its own with no world and no card;
   moe_ep   olmoe-1b-7b's MoE layer at full width expert-parallel on (1, 4),
            float32: the scatter path (B 4 x S 512) and the gather path (B 4 x
            S 1) against moe_apply on one rank, outputs and gradients; the
@@ -103,6 +118,7 @@ and prints no result.  Without a CUDA device it exits 2 at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -234,6 +250,10 @@ RMSNORM_BWD_SHAPES = ((2048, 1152), (1024, 1152), (1024, 768))
 # every tensor's gradient norm there by several percent alike, and in float32
 # the sharded run's does not move (tools/sharded_divergence.py --float32)
 SHARDED_MESH = {"data": 2, "model": 2}
+CAPTURE_STEP = 2  # the sharded step whose schedules the capture phase holds
+CAPTURE_CELLS = (("gemma3-1b", "train_4k", "single"), ("olmoe-1b-7b", "train_4k", "single"))
+MATMUL_N = 8192
+COPY_BYTES = 2 << 30
 SHARDED_CONTROL_MICROBATCHES = 4
 SHARDED_STEPS = 3
 SHARDED_LOSS_TOL = 0.05
@@ -1826,6 +1846,7 @@ def _sharded_rank(rank: int, world: int, arch: str) -> dict:
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
+    from repro_torch.core.capture import capture_collectives
     from repro_torch.data import DataConfig, SyntheticLMDataset, prefetch
     from repro_torch.distributed.collectives import EXCHANGED, exchange_device
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
@@ -1860,6 +1881,15 @@ def _sharded_rank(rank: int, world: int, arch: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     rmsnorm_cuda.launches = rmsnorm_bwd_cuda.launches = 0
     EXCHANGED.clear()
+    schedules, step_fn = [], trainer.step_fn
+
+    def capturing(*args, **kwargs):  # each step's schedule, as the rank ran it
+        with capture_collectives() as ops:
+            out = step_fn(*args, **kwargs)
+        schedules.append([dataclasses.asdict(o) for o in ops])
+        return out
+
+    trainer.step_fn = capturing
     with recording_grad_squares(trainer) as squares:
         history = trainer.run(batches, SHARDED_STEPS, log_every=0)
     torch.cuda.synchronize()
@@ -1874,15 +1904,17 @@ def _sharded_rank(rank: int, world: int, arch: str) -> dict:
             # .grad in the param dtype and the float32 microbatch buffers
             "grad_buffer_bytes": param_bytes + 4 * n_local,
             "zero1_state_bytes": state_bytes,
-            "unpartitioned": trainer.step_fn.unpartitioned,
+            "schedules": schedules, "exchanged": dict(EXCHANGED),
+            "unpartitioned": step_fn.unpartitioned,
             "fallbacks": trainer.fallbacks}
 
 
-def phase_sharded(card: str, single: dict) -> dict:
+def phase_sharded(card: str, single: dict) -> tuple:
     """gemma3-1b at full width and depth on a (2, 2) mesh: 4 ranks, one
     process each, sharing the card; each step's loss and the first steps'
     gradient norms held to the one-rank train phase's (``single``), the first
-    step's norm of each tensor kind to a one-rank rerun's."""
+    step's norm of each tensor kind to a one-rank rerun's.  Returns the
+    phase's line and the ranks' results (their schedules for the capture)."""
     from repro_torch.distributed import run_world
 
     arch = TRAIN_MAIN
@@ -1948,7 +1980,171 @@ def phase_sharded(card: str, single: dict) -> dict:
                 "launches", "loss_max_abs_err", "grad_norm_rel_dev")}
                 for r in ranks],
             "unpartitioned": ranks[0]["unpartitioned"], "fallbacks": ranks[0]["fallbacks"],
-            "seconds": seconds, "card": card}
+            "seconds": seconds, "card": card}, ranks
+
+
+def _first_difference(got: list, want: list) -> str:
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return f"op {i}: executed {a} against abstract {b}"
+    return f"{len(got)} ops executed against {len(want)} abstract"
+
+
+def _card_rates() -> dict:
+    """The card's bf16 matmul and device-to-device copy rates, by CUDA events,
+    beside H100_SXM's data-sheet peaks."""
+    from repro_torch.core.interconnect import H100_SXM
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn(MATMUL_N, MATMUL_N, device="cuda", generator=gen).to(torch.bfloat16)
+    b = torch.randn(MATMUL_N, MATMUL_N, device="cuda", generator=gen).to(torch.bfloat16)
+    mm_ms = time_ms(lambda: torch.matmul(a, b), iters=20, warmup=5)
+    tflops = 2 * MATMUL_N ** 3 / (mm_ms * 1e-3) / 1e12
+    del a, b
+    src = torch.empty(COPY_BYTES, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    cp_ms = time_ms(lambda: dst.copy_(src), iters=20, warmup=5)
+    tbs = 2 * COPY_BYTES / (cp_ms * 1e-3) / 1e12  # each byte read once and written once
+    del src, dst
+    torch.cuda.empty_cache()
+    return {"matmul": {"n": MATMUL_N, "dtype": "bfloat16", "ms": mm_ms, "tflops": tflops,
+                       "spec_tflops": H100_SXM.peak_flops_bf16 / 1e12,
+                       "share_of_spec": tflops * 1e12 / H100_SXM.peak_flops_bf16},
+            "copy": {"bytes": COPY_BYTES, "ms": cp_ms, "tb_per_s": tbs,
+                     "spec_tb_per_s": H100_SXM.hbm_bw / 1e12,
+                     "share_of_spec": tbs * 1e12 / H100_SXM.hbm_bw}}
+
+
+def _abstract_trace(job: tuple) -> tuple:
+    """One abstract trace of the capture phase, in a spawned process of its
+    own with no world and no card: ``("rank", r)`` the sharded step of rank r
+    on SHARDED_MESH, ``("cell", arch, shape, mesh)`` a dry-run cell's record,
+    ``("one_card",)`` the train phase's step with no mesh.  Returns (result,
+    host seconds)."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.dryrun import run_cell, trace_cell
+    from repro_torch.launch.mesh import Mesh
+
+    t0 = time.perf_counter()
+    batch, seq, mb = TRAIN_RUNS[TRAIN_MAIN][:3]
+    shape = ShapeSpec("chip_train", seq, batch, "train")
+    if job[0] == "cell":
+        out = run_cell(*job[1:], verbose=False)
+    else:
+        mesh = Mesh(SHARDED_MESH) if job[0] == "rank" else None
+        out = trace_cell(get_config(TRAIN_MAIN), shape, mesh, job[1] if mesh else 0,
+                         {"microbatches": mb})
+    return out, time.perf_counter() - t0
+
+
+def phase_capture(card: str, ranks: list, single: dict) -> dict:
+    """The capture bridge against the card (see the module's doc): the
+    sharded ranks' recorded schedules (``ranks``) against their abstract
+    captures, the dry-run cells on H100_SXM, the one-card train cell against
+    the train phase's device busy time (``single``), and the card's rates.
+    The abstract traces run at once, one spawned process each."""
+    import concurrent.futures
+    import multiprocessing
+
+    from repro_torch.core.capture import CollectiveOp, KINDS, by_kind, schedule_to_trace
+    from repro_torch.core.interconnect import H100_SXM
+    from repro_torch.core.predictor import predict_step, roofline
+    from repro_torch.launch.dryrun import schedule_of
+    from repro_torch.launch.roofline import topo_for
+
+    t_start = time.perf_counter()
+    arch = TRAIN_MAIN
+    batch, seq, mb = TRAIN_RUNS[arch][:3]
+    per_step = TRAIN_LAUNCHES_PER_STEP[arch]
+    names = {v: k for k, v in KINDS.items()}
+    jobs = ([("rank", r["rank"]) for r in ranks] + [("cell", *c) for c in CAPTURE_CELLS]
+            + [("one_card",)])
+    with concurrent.futures.ProcessPoolExecutor(
+            len(jobs), mp_context=multiprocessing.get_context("spawn")) as pool:
+        traced = dict(zip(jobs, pool.map(_abstract_trace, jobs)))
+    traces_s = time.perf_counter() - t_start
+    per_rank = []
+    for r in ranks:
+        tr, trace_s = traced[("rank", r["rank"])]
+        steps = [[CollectiveOp(**{**d, "axes": tuple(d["axes"])}) for d in ops]
+                 for ops in r["schedules"]]
+        executed = steps[CAPTURE_STEP - 1]
+        if executed != tr["ops"]:
+            raise AssertionError(f"rank {r['rank']}: step {CAPTURE_STEP}'s schedule is not "
+                                 f"the abstract capture: "
+                                 f"{_first_difference(executed, tr['ops'])}")
+        if any(ops != executed for ops in steps):
+            raise AssertionError(f"rank {r['rank']}: the steps' schedules differ")
+        sums = {}
+        for o in (o for ops in steps for o in ops):
+            sums[names[o.kind]] = sums.get(names[o.kind], 0) + o.operand_bytes
+        if sums != r["exchanged"]:
+            raise AssertionError(f"rank {r['rank']}: captured bytes {sums} != EXCHANGED "
+                                 f"{r['exchanged']}")
+        cost = tr["cost"]
+        if cost.kernel_calls != per_step:
+            raise AssertionError(f"rank {r['rank']}: abstract kernel calls "
+                                 f"{cost.kernel_calls} != {per_step}")
+        measured = {"param_bytes": r["param_bytes"], "grad_buffer_bytes": r["grad_buffer_bytes"],
+                    "state_bytes": r["zero1_state_bytes"]}
+        if tr["bytes"] != measured:
+            raise AssertionError(f"rank {r['rank']}: abstract bytes {tr['bytes']} != "
+                                 f"measured {measured}")
+        per_rank.append({
+            "rank": r["rank"], "coord": tr["coord"], "ops_per_step": len(executed),
+            "by_kind": {k: {"count": c, "bytes": b} for k, (c, b) in by_kind(executed).items()},
+            "equal_to_abstract": True, "abstract_kernel_calls": cost.kernel_calls,
+            "abstract_bytes": tr["bytes"], "measured_bytes": measured,
+            "abstract_peak_bytes": cost.peak_live_bytes,
+            "measured_peak_bytes": r["peak_mem_bytes"],
+            "abstract_over_measured_peak": cost.peak_live_bytes / r["peak_mem_bytes"],
+            "trace_s": trace_s})
+
+    cells = []
+    for cell_arch, shape_name, mesh_name in CAPTURE_CELLS:
+        rec, host_s = traced[("cell", cell_arch, shape_name, mesh_name)]
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run {cell_arch} x {shape_name} x {mesh_name}: "
+                                 f"{rec.get('error')}")
+        topo = topo_for(mesh_name, H100_SXM)
+        ops = schedule_of(rec)
+        terms = roofline(arch=cell_arch, shape=shape_name, mesh=mesh_name, topo=topo,
+                         hlo_flops_per_device=rec["flops_per_device"],
+                         hlo_bytes_per_device=rec["bytes_per_device"], collective_ops=ops,
+                         model_flops_total=rec["model_flops"],
+                         bytes_per_device_hbm=rec["hbm_bytes_per_device"])
+        bundle = schedule_to_trace(ops, topo)
+        cells.append({"arch": cell_arch, "shape": shape_name, "mesh": mesh_name,
+                      "topology": topo.describe(), "collectives": rec["collectives"],
+                      "kernel_calls": rec["kernel_calls"], "memory": rec["memory"],
+                      "roofline": {k: v for k, v in terms.as_dict().items()
+                                   if k not in ("arch", "shape", "mesh", "note")},
+                      "predict_step": predict_step(terms, topo, ops).as_dict(),
+                      "trace_writes": len(bundle), "trace_span_ns": bundle.span_ns(),
+                      "trace_s": rec["lower_s"], "host_s": host_s})
+
+    one, one_s = traced[("one_card",)]
+    compute_s = one["cost"].dot_flops / H100_SXM.peak_flops_bf16
+    memory_s = one["cost"].bytes / H100_SXM.hbm_bw
+    busy_ms = single["profile"]["device_busy_ms"]
+    one_card = {"arch": arch, "batch": batch, "seq": seq, "microbatches": mb, "mesh": "1x1",
+                "dot_flops": one["cost"].dot_flops, "bytes": one["cost"].bytes,
+                "kernel_calls": one["cost"].kernel_calls, "compute_ms": compute_s * 1e3,
+                "memory_ms": memory_s * 1e3, "compute_plus_memory_ms": (compute_s + memory_s) * 1e3,
+                "measured_device_busy_ms": busy_ms,
+                "measured_over_model": busy_ms / ((compute_s + memory_s) * 1e3),
+                "abstract_peak_bytes": one["cost"].peak_live_bytes,
+                "measured_peak_bytes": single["peak_mem_bytes"], "host_s": one_s}
+    if one["cost"].kernel_calls != per_step:
+        raise AssertionError(f"one-card cell: kernel calls {one['cost'].kernel_calls}")
+    return {"phase": "capture", "step_held": CAPTURE_STEP, "mesh": SHARDED_MESH,
+            "ranks": per_rank, "cells": cells, "one_card_cell": one_card,
+            "card_rates": _card_rates(), "abstract_traces_s": traces_s,
+            "seconds": time.perf_counter() - t_start,
+            "card": card}
 
 
 def grad_kind(name: str) -> str:
@@ -2321,7 +2517,10 @@ def main() -> int:
     trains = {arch: done(f"{arch} train", phase_train(card, arch)) for arch in TRAIN_RUNS}
     done("train_parity", phase_train_parity())
     torch.cuda.empty_cache()
-    sharded = done("sharded", phase_sharded(card, trains[TRAIN_MAIN]))
+    sharded, sharded_ranks = phase_sharded(card, trains[TRAIN_MAIN])
+    done("sharded", sharded)
+    done("capture", phase_capture(card, sharded_ranks, trains[TRAIN_MAIN]))
+    del sharded_ranks
     moe_ep, pipeline = phase_moe_ep_and_pipeline(card)
     emit(moe_ep)
     done("moe_ep and pipeline", pipeline)

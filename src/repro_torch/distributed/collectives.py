@@ -29,6 +29,15 @@ identity) at its exit, :func:`gather` (all-gather; backward this rank's
 slice) and :func:`split` (this rank's slice; backward all-gather), and
 :func:`all_to_all` (backward: the exchange back).  ``EXCHANGED`` adds up, by
 collective, the bytes of the buffers this rank hands to them.
+
+Every exchange passes through ``_all_reduce``, ``_all_gather``,
+``_all_to_all`` or ``_ring_shift``, and each reports what it is handed to
+the active ``core.capture.capture_collectives`` with its group's size and
+mesh axes (``Mesh.bind`` names its groups' axes here).  A
+``core.capture.CaptureGroup`` (``Mesh.bind_abstract``: a rank with no world)
+takes the same path but for the exchange itself: the op is recorded and the
+result is a copy of the right shape and dtype, on the tensor's own device.
+A real process group is never a ``CaptureGroup``, so it always exchanges.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
+from ..core.capture import CaptureGroup, record
 from ..kernels import ops
 
 __all__ = [
@@ -58,14 +68,34 @@ __all__ = [
 ]
 
 EXCHANGED: Counter = Counter()  # bytes handed to each collective by this rank
+_GROUP_AXES: dict = {}  # process group -> the mesh axes it spans (Mesh.bind)
 
 
-def _count(name: str, t: torch.Tensor) -> None:
+def name_group(group, axes) -> None:
+    """Record that process ``group`` spans the mesh ``axes`` (for the capture)."""
+    _GROUP_AXES[group] = tuple(axes)
+
+
+def _size(group) -> int:
+    return group.size if isinstance(group, CaptureGroup) else dist.get_world_size(group)
+
+
+def _rank(group) -> int:
+    return group.rank if isinstance(group, CaptureGroup) else dist.get_rank(group)
+
+
+def _count(name: str, t: torch.Tensor, group) -> None:
+    """Count and record that this rank hands ``t`` to exchange ``name``."""
     EXCHANGED[name] += t.numel() * t.element_size()
+    axes = group.axes if isinstance(group, CaptureGroup) else _GROUP_AXES.get(group, ())
+    record(name, t, _size(group), axes)
 
 
 def exchange_device(t: torch.Tensor, group=None) -> torch.device:
-    """The host for a gloo group, else ``t``'s own device."""
+    """The host for a gloo group, else ``t``'s own device (a capture group's
+    too: nothing leaves it)."""
+    if isinstance(group, CaptureGroup):
+        return t.device
     return torch.device("cpu") if dist.get_backend(group) == "gloo" else t.device
 
 
@@ -76,7 +106,9 @@ def _peer(group, group_rank: int) -> int:
 
 def _all_reduce(t: torch.Tensor, group=None, op=dist.ReduceOp.SUM) -> torch.Tensor:
     buf = t.detach().to(exchange_device(t, group), copy=True)
-    _count("all_reduce", buf)
+    _count("all_reduce", buf, group)
+    if isinstance(group, CaptureGroup):
+        return buf
     dist.all_reduce(buf, op=op, group=group)
     return buf.to(t.device)
 
@@ -84,7 +116,9 @@ def _all_reduce(t: torch.Tensor, group=None, op=dist.ReduceOp.SUM) -> torch.Tens
 def _all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's ``t`` stacked in rank order: ``[world, *t.shape]``."""
     src = t.detach().to(exchange_device(t, group)).contiguous()
-    _count("all_gather", src)
+    _count("all_gather", src, group)
+    if isinstance(group, CaptureGroup):
+        return src.unsqueeze(0).expand(group.size, *src.shape).clone()
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
     return torch.stack(parts).to(t.device)
@@ -94,7 +128,9 @@ def _all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
     """Chunk i of ``t [world, ...]`` goes to rank i; chunk i of the result
     came from rank i (``all_to_all`` with split and concat axis 0)."""
     src = t.detach().to(exchange_device(t, group)).contiguous()
-    _count("all_to_all", src)
+    _count("all_to_all", src, group)
+    if isinstance(group, CaptureGroup):
+        return src.clone()
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=group)
     return out.to(t.device)
@@ -103,9 +139,11 @@ def _all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
 def _ring_shift(t: torch.Tensor, group=None, offset: int = 1) -> torch.Tensor:
     """Send ``t`` to rank + offset and return what rank - offset sent
     (``ppermute`` i -> i+1 for the offset 1; -1 is its reverse)."""
-    rank, n = dist.get_rank(group), dist.get_world_size(group)
     send = t.detach().to(exchange_device(t, group)).contiguous()
-    _count("ring_shift", send)
+    _count("ring_shift", send, group)
+    if isinstance(group, CaptureGroup):
+        return send.clone()
+    rank, n = dist.get_rank(group), dist.get_world_size(group)
     recv = torch.empty_like(send)
     reqs = dist.batch_isend_irecv([
         dist.P2POp(dist.isend, send, _peer(group, (rank + offset) % n), group),
@@ -139,7 +177,7 @@ def fused_gemv_allreduce(x: torch.Tensor, w: torch.Tensor, group=None):
     tile r, and an all-gather of the owned tiles gives y.  Values equal
     :func:`psum_matmul`'s up to the order of the additions.
     """
-    n, r = dist.get_world_size(group), dist.get_rank(group)
+    n, r = _size(group), _rank(group)
     B = x.shape[0]
     yt, owner_served = ops.gemv_tiles(w.T, x.T.contiguous(), n_dev=n, my_dev=r)  # [N, B]
     N = yt.shape[0]
@@ -158,7 +196,7 @@ def fused_gemv_allreduce(x: torch.Tensor, w: torch.Tensor, group=None):
 def ring_allreduce(x: torch.Tensor, group=None) -> torch.Tensor:
     """Naive ring all-reduce: n - 1 shifts to rank + 1, each added to the sum."""
     acc, cur = x, x
-    for _ in range(dist.get_world_size(group) - 1):
+    for _ in range(_size(group) - 1):
         cur = _ring_shift(cur, group)
         acc = acc + cur
     return acc
@@ -219,9 +257,8 @@ def raw_all_gather(t: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
 
 
 def _own(t: torch.Tensor, group, dim: int) -> torch.Tensor:
-    n = dist.get_world_size(group)
-    step = t.shape[dim] // n
-    return t.narrow(dim, dist.get_rank(group) * step, step)
+    step = t.shape[dim] // _size(group)
+    return t.narrow(dim, _rank(group) * step, step)
 
 
 class _CopyIn(torch.autograd.Function):

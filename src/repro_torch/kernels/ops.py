@@ -5,6 +5,17 @@ version.  There is no fallback: a CUDA call that the kernel refuses raises.
 ``rmsnorm`` is differentiable on both: on the card through
 :class:`~.rmsnorm.RMSNormFunction` (the forward and backward kernels) where
 autograd records, on the CPU through the plain version's own autograd.
+
+A ``meta`` tensor (the dry run's: shapes, no data) takes an explicit branch
+of its own to the kernels' shape functions, the operators
+``repro_torch::rmsnorm`` / ``rmsnorm_bwd`` (:func:`~.rmsnorm.rmsnorm_op`),
+through the same :class:`~.rmsnorm.RMSNormFunction` where autograd records;
+they allocate the outputs' shapes, launch nothing, and the dry run's dispatch
+modes count each as one kernel call.  A CUDA tensor never takes it: the
+operators' dispatch cost some 20 µs of host time a call and 4 ms a gemma3-1b
+decode step more than the wrappers, measured on an NVIDIA H100 80GB HBM3 at
+700 W (``tools/rmsnorm_dispatch_cost.py``; PERF.md), so they are shape
+functions only and raise on any other tensor.
 """
 
 from __future__ import annotations
@@ -14,7 +25,8 @@ import torch
 from .decode_attention import decode_attention_cuda, decode_attention_ref
 from .gemv import gemv_cuda, gemv_ref
 from .gemv_tiles import gemv_tiles_cuda, gemv_tiles_ref
-from .rmsnorm import RMSNormFunction, rmsnorm_bwd_cuda, rmsnorm_cuda, rmsnorm_ref
+from .rmsnorm import (RMSNormFunction, rmsnorm_bwd_cuda, rmsnorm_bwd_op, rmsnorm_cuda, rmsnorm_op,
+                      rmsnorm_ref)
 
 __all__ = ["decode_attention", "gemv", "gemv_tiles", "rmsnorm"]
 
@@ -46,8 +58,12 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
     On the card one forward launch a call; where autograd records (grad mode
     on and x or gamma requiring grad) the backward kernel gives the gradients.
     """
-    if x.is_cuda:
-        if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad):
-            return RMSNormFunction.apply(x, gamma, eps, (rmsnorm_cuda, rmsnorm_bwd_cuda))
-        return rmsnorm_cuda(x, gamma, eps)
-    return rmsnorm_ref(x, gamma, eps)
+    if x.is_cuda:  # the kernels
+        fns = (rmsnorm_cuda, rmsnorm_bwd_cuda)
+    elif x.is_meta:  # the dry run's shapes: the kernels' shape functions
+        fns = (rmsnorm_op, rmsnorm_bwd_op)
+    else:
+        return rmsnorm_ref(x, gamma, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad):
+        return RMSNormFunction.apply(x, gamma, eps, fns)
+    return fns[0](x, gamma, eps)

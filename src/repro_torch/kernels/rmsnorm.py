@@ -16,8 +16,16 @@ in one launch: each CTA takes a run of rows in blocks loaded at once, and
 the last CTAs to finish sum the CTAs' dgamma rows (:func:`rmsnorm_bwd_plan`,
 pure and CPU-tested, chooses the blocks, the runs and the reducers).
 :class:`RMSNormFunction` runs the forward kernel and saves ``(x, gamma)``
-for the backward kernel; ``kernels.ops.rmsnorm`` sends a CUDA tensor through
-it whenever autograd records.
+for the backward kernel (the CPU tests pass it the plain versions).
+
+The two kernels also have operators for the dry run (``launch/dryrun.py``),
+``repro_torch::rmsnorm`` and ``repro_torch::rmsnorm_bwd`` (:func:`rmsnorm_op`,
+:func:`rmsnorm_bwd_op`): shape functions only.  On the ``meta`` tensors each
+allocates the outputs' shapes and launches nothing, and the dry run's
+dispatch modes see one op a kernel call (``core/cost.py``);
+``kernels.ops.rmsnorm`` passes them to :class:`RMSNormFunction` as its pair.
+On any other tensor they raise: the card reaches the kernels through the
+wrappers alone.
 """
 
 from __future__ import annotations
@@ -31,7 +39,8 @@ import torch
 from . import build
 
 __all__ = ["rmsnorm_cuda", "rmsnorm_ref", "rmsnorm_plan", "rmsnorm_bwd_cuda", "rmsnorm_bwd_ref",
-           "rmsnorm_bwd_plan", "RMSNormBwdPlan", "rmsnorm_bwd_workspace", "RMSNormFunction"]
+           "rmsnorm_bwd_plan", "RMSNormBwdPlan", "rmsnorm_bwd_workspace", "RMSNormFunction",
+           "rmsnorm_op", "rmsnorm_bwd_op"]
 
 MAX_THREADS = 256      # threads a row (kMaxThreads in csrc/rmsnorm.cu)
 VECTORS = (1, 2, 4, 8)  # 16-byte vectors of x a thread may hold
@@ -264,3 +273,31 @@ class RMSNormFunction(torch.autograd.Function):
         dx, dgamma = ctx.backward_fn(x, gamma, g.contiguous(), ctx.eps)
         return (dx if ctx.needs_input_grad[0] else None,
                 dgamma if ctx.needs_input_grad[1] else None, None, None)
+
+
+def _shapes_only(name: str, x: torch.Tensor):
+    raise RuntimeError(f"repro_torch::{name} is the dry run's shape function; a {x.device} "
+                       "tensor takes the kernel's wrapper (kernels.ops.rmsnorm)")
+
+
+@torch.library.custom_op("repro_torch::rmsnorm", mutates_args=())
+def rmsnorm_op(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
+    """:func:`rmsnorm_cuda`'s shape, on ``meta`` tensors only."""
+    _shapes_only("rmsnorm", x)
+
+
+@rmsnorm_op.register_fake
+def _rmsnorm_shape(x, gamma, eps):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("repro_torch::rmsnorm_bwd", mutates_args=())
+def rmsnorm_bwd_op(x: torch.Tensor, gamma: torch.Tensor, g: torch.Tensor,
+                   eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rmsnorm_bwd_cuda`'s shapes ``(dx, dgamma)``, on ``meta`` tensors only."""
+    _shapes_only("rmsnorm_bwd", x)
+
+
+@rmsnorm_bwd_op.register_fake
+def _rmsnorm_bwd_shape(x, gamma, g, eps):
+    return torch.empty_like(x), torch.empty_like(gamma)

@@ -8,6 +8,13 @@ production meshes (256 or 512 ranks) resolve against it without a world.
 world, gives the :class:`BoundMesh` of this rank: its coordinate on each axis
 and one process group for each slice of the mesh along each set of axes.
 
+:meth:`Mesh.bind_abstract` gives the bound mesh of one rank with no world:
+its coordinate, and for each slice a ``core.capture.CaptureGroup`` (the
+slice's axes, size and this rank's index in it) in place of a process
+group.  The exchanges record what they are handed over such a group and
+exchange nothing, so one rank's step runs alone, as it would in the world,
+for the capture bridge (``launch/dryrun.py``).
+
 A dim sharded over several axes is cut in the mesh's axis order, the first
 axis major; :meth:`BoundMesh.index` gives this rank's chunk.
 """
@@ -20,6 +27,9 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch.distributed as dist
+
+from ..core.capture import CaptureGroup
+from ..distributed.collectives import name_group
 
 __all__ = ["Mesh", "BoundMesh", "make_production_mesh", "make_mesh_by_name", "BATCH_AXES"]
 
@@ -91,8 +101,29 @@ class Mesh:
                     g = dist.new_group(sorted(int(r) for r in members))
                     if dist.get_rank() in members:
                         groups[axes] = g
+                        name_group(g, axes)
         coords = self.coords(dist.get_rank())
         return None if coords is None else BoundMesh(self, coords, groups)
+
+    def bind_abstract(self, rank: int) -> "BoundMesh":
+        """The bound mesh of global ``rank`` with no world: a
+        :class:`~repro_torch.core.capture.CaptureGroup` for each set of axes
+        along which it has company, as :meth:`bind` has a process group."""
+        coord = self.coords(rank)
+        if coord is None:
+            raise ValueError(f"rank {rank} is not in {self}")
+        groups = {}
+        names = self.axis_names
+        for k in range(1, len(names) + 1):
+            for axes in itertools.combinations(names, k):
+                # this rank's slice: the other axes fixed at its coordinate
+                members = self.devices[tuple(slice(None) if a in axes else coord[a]
+                                             for a in names)]
+                if members.size > 1:
+                    # its index in the slice, as in bind's group of the sorted ranks
+                    index = sorted(int(r) for r in members.reshape(-1)).index(rank)
+                    groups[axes] = CaptureGroup(axes, members.size, index)
+        return BoundMesh(self, coord, groups)
 
 
 class BoundMesh(Mesh):

@@ -29,8 +29,15 @@ vocab-parallel cross-entropy whose [B, S] statistics are summed over
 batch's on every rank: each rank's gradients are its rows' part, for the
 train step to sum over the batch axes.  Mamba2, xLSTM and MLA blocks (and
 attention whose heads ``model`` does not divide) run whole on every rank
-from gathered weights (:meth:`Model.unpartitioned` lists them).  Serving
-takes an unsharded model.
+from gathered weights (:meth:`Model.unpartitioned` lists them).  ``prefill``
+runs under a mesh too (this rank's rows; the last token's logits gathered
+over ``model``; the caches this rank's shards); ``decode_step`` takes an
+unsharded model.
+
+:meth:`Model.abstract` builds the model on the ``meta`` device: parameters
+with their shapes and dtypes and no data, the counterpart of the reference's
+``Model.abstract_params``.  The dry run (``launch/dryrun.py``) traces a
+rank's step on it; nothing can compute on it.
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ import torch.distributed
 from torch import nn
 
 from ..device import resolve_device
-from ..distributed.collectives import copy_in, raw_all_reduce, reduce_out
+from ..distributed.collectives import copy_in, raw_all_gather, raw_all_reduce, reduce_out
 from ..distributed.remat import POLICIES, maybe_remat
 from ..distributed.sharding import shard_tensor, use_full, use_params
 from .attention import (attention_apply, attention_decode, attention_specs, head_parallel,
@@ -396,9 +403,23 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device: str | torch.device | None = None):
         super().__init__()
+        self._build(cfg, resolve_device(device))
+
+    @classmethod
+    def abstract(cls, cfg: ModelConfig) -> "Model":
+        """The model on the ``meta`` device: every parameter its spec's shape
+        and dtype, no data, no device memory and no generator.  Only shape
+        functions run on it (the dry run's trace); it is no way to compute
+        without a card."""
+        model = cls.__new__(cls)
+        nn.Module.__init__(model)
+        model._build(cfg, torch.device("meta"))
+        return model
+
+    def _build(self, cfg: ModelConfig, device: torch.device) -> None:
         self.cfg = cfg.validate()
         specs = param_specs(cfg)
-        self.device = resolve_device(device)
+        self.device = device
         self.mesh = None        # set by bind_mesh
         self.shardings = None   # {name: spec} under a mesh
         self.embed = _param(specs["embed"], self.device)
@@ -629,14 +650,19 @@ class Model(nn.Module):
 
         The caches are the reference's: ``S`` slots on global layers (and MLA
         latents), a ring of ``min(window, S)`` slots on local ones, and each
-        recurrent block's state after the last token.
+        recurrent block's state after the last token.  Under a mesh the
+        tokens are this rank's rows, the logits the whole vocabulary's
+        (gathered over ``model`` where the head is cut over it) and the caches
+        this rank's shards (its KV heads where attention is head-parallel).
         """
-        self._unsharded()
         x, _, kvs = self._layers(self._embed(tokens, embeds))
         S = x.shape[1]
         caches = [self._prefill_cache(kv, li, S) if isinstance(block, DenseBlock) else kv
                   for li, (block, kv) in enumerate(zip(self.entries, kvs))]
-        return self._head(x[:, -1:, :])[:, 0, :], caches
+        logits = self._head(x[:, -1:, :])[:, 0, :]
+        if self._vocab_slice() is not None:
+            logits = raw_all_gather(logits, self.mesh, "model", dim=-1)
+        return logits, caches
 
     def _prefill_cache(self, kv, layer_idx: int, S: int) -> Dict[str, torch.Tensor]:
         cfg = self.cfg

@@ -103,11 +103,12 @@ def grouped_ffn_ref(cfg: ModelConfig, p, xs: torch.Tensor, offsets: torch.Tensor
 
 
 def grouped_ffn(cfg: ModelConfig, p, xs: torch.Tensor, offsets: torch.Tensor):
-    """``grouped_ffn_ref``'s function: ``torch._grouped_mm`` on the card, the
-    loop on the CPU.  ``offsets`` is int32 on xs's device.  On the card, rows
-    past the last offset are left unwritten, in the output and in the input's
+    """``grouped_ffn_ref``'s function: ``torch._grouped_mm`` on the card (and
+    on the dry run's ``meta`` tensors, whose shapes it gives), the loop on the
+    CPU.  ``offsets`` is int32 on xs's device.  On the card, rows past the
+    last offset are left unwritten, in the output and in the input's
     gradient."""
-    if not xs.is_cuda:
+    if xs.device.type == "cpu":
         return grouped_ffn_ref(cfg, p, xs, offsets)
     act = activation(cfg)
     g = torch._grouped_mm(xs, p["w_gate"], offs=offsets)

@@ -142,10 +142,13 @@ def _scatter(cfg: ModelConfig, p, x: torch.Tensor, mesh, batch_axes, ff_axis):
     keep = pos < C
     dropped = (~keep).sum().float().reshape(1)
 
-    at = (sdest[keep], pos[keep])
-    send_x = xm.new_zeros(msz, C, d).index_put(at, xm[pair_tok[order]][keep])
-    send_le = torch.full((msz, C), E_loc, dtype=torch.long, device=x.device).index_put(
-        at, (flat_e[order] % E_loc)[keep])
+    # a dropped pair is written to a spare destination row msz, cut off
+    # before the exchange: the buffers stay contiguous and no shape depends
+    # on the routing, so the dry run traces it
+    at = (torch.where(keep, sdest, msz), torch.where(keep, pos, 0))
+    send_x = xm.new_zeros(msz + 1, C, d).index_put(at, xm[pair_tok[order]])[:msz]
+    send_le = torch.full((msz + 1, C), E_loc, dtype=torch.long, device=x.device).index_put(
+        at, flat_e[order] % E_loc)[:msz]
 
     recv_x = all_to_all(send_x, mesh, "model").reshape(msz * C, d)
     recv_le = all_to_all(send_le, mesh, "model").reshape(msz * C)
