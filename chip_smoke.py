@@ -103,7 +103,38 @@ Phases, each printing one JSON line:
            against the layers run in sequence;
   remat    gemma3-1b's one-rank step at full width under "none", "full",
            "dots" and "dots_no_batch": exact rmsnorm launches (210 / 106 a
-           step under remat), ms a step, peak memory, losses equal.
+           step under remat), ms a step, peak memory, losses equal;
+  sharded_serve  serving on a (2, 2) mesh: 4 ranks, one process each,
+           sharing the card in a gloo group, at full width and depth in
+           float32 (seed-0 weights drawn whole and sliced) through
+           ServeEngine: gemma3-1b 4 x (32 + 8) tokens (head-parallel, the
+           one KV head read by both model ranks) and olmoe-1b-7b 4 x (32 + 8)
+           (the expert-parallel gather path); then gemma3-1b 1 x (504 + 16)
+           through Model.prefill of the prompt into caches of 520 slots and
+           16 decode steps (the row does not divide over data: every cache's
+           slots are cut over data, sequence-parallel through the kernel's
+           partial entry, the local layers' 512-slot rings wrapping at step
+           9).  Each is first run on one rank in this process and freed.
+           Every rank: tokens exactly the one-rank run's, the first and last
+           steps' logits within 1e-4, rmsnorm and decode_attention launches
+           a step as decode_launches gives them (and the prefill's norms),
+           and the executed schedule of its last decode step equal, op for
+           op, to its abstract capture (trace_cell on meta tensors); ms a step
+           (the gloo host exchange), the bytes handed to each collective a
+           step (a prefill's apart), peak memory beside the rank's parameter
+           and cache bytes.
+The kernels phase also holds decode_attention's partial entry (a slice of S:
+float32 output and log-sum-exp) from bf16 and float32 inputs at olmoe's and
+gemma3-1b's head layouts over 2 and 4 slices of S 544, an empty slice among
+them, each slice against its plain version and the slices combined against
+the whole attention, all at the float32 tolerance (two faulty combines and
+bf16 softmax weights or accumulators rejected); then both entries in
+float32 at the shapes and lengths sharded_serve's ranks give them, derived
+from its runs and mesh (the whole kernel on each rank's rows and heads, the
+partial entry on each data rank's slice of the 520-slot global caches and
+the 512-slot local rings, wrapped, at every decode position and at 0 and 1
+tokens), which that phase's ranks then show they met; and the partial's
+device time on half of S 544 beside the whole kernel's.
 The kernels phase also holds the rmsnorm backward (the port's own kernel: the
 reference differentiates rms_norm through XLA) against its plain version at
 the training shapes, bits repeating over 5 calls and a bf16 dgamma
@@ -119,6 +150,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -286,6 +318,23 @@ REMAT_POLICIES = ("none", "full", "dots", "dots_no_batch")
 REMAT_STEPS = 2
 REMAT_LAUNCHES_PER_STEP = {p: {"rmsnorm": 106 if p == "none" else 210, "rmsnorm_bwd": 106}
                            for p in REMAT_POLICIES}
+# sharded serving (slice 4d) on a (2, 2) mesh in float32, each run (arch,
+# requests, prompt tokens, new tokens, how the prompt goes in): gemma3-1b and
+# olmoe-1b-7b batched through the engine (the prompt a token a step), then
+# gemma3-1b's one request past its 512-slot window (sequence-parallel), its
+# prompt through one prefill (a step a token would take 504 steps of about
+# 130 exchanges through the host); the logits of the first and last steps
+# against the one-rank run's
+SERVE_MESH = {"data": 2, "model": 2}
+SHARDED_SERVE_RUNS = (("gemma3-1b", 4, 32, 8, "engine"), (MAIN_ARCH, 4, 32, 8, "engine"),
+                      ("gemma3-1b", 1, 504, 16, "prefill"))
+SHARDED_SERVE_TOL = 1e-4
+# the partial entry at olmoe's and gemma3-1b's head layouts, S 544 cut in
+# PARTIAL_SLICES, the valid prefix PARTIAL_LENGTHS (200 leaves slices empty)
+PARTIAL_HEADS = {"olmoe": (16, 16, 128), "gemma3_1b": (4, 1, 256)}
+PARTIAL_SLICES = (2, 4)
+PARTIAL_LENGTHS = (PROMPT_LEN + NEW_TOKENS, 200)
+PARTIAL_CONTROLS = ("slice_dropped", "lse_ignored", "p_bf16", "acc_bf16")  # rejected
 
 # torch.profiler on the card drops activity records now and then, in bursts
 # that can span several sessions in a row (a session may lose a few of its
@@ -966,6 +1015,244 @@ def _attention_path(gen: torch.Generator, H: int, KV: int, D: int, S: int) -> di
     }
 
 
+def _partials(q, k, v, length: int, R: int, partial) -> list:
+    """``partial`` (the kernel's entry or its plain version) on each of R
+    consecutive slices of S: ``(o, lse, valid slots)``."""
+    L = k.shape[1] // R
+    out = []
+    for r in range(R):
+        n = min(max(length - r * L, 0), L)
+        ks, vs = k[:, r * L:(r + 1) * L].contiguous(), v[:, r * L:(r + 1) * L].contiguous()
+        out.append((*partial(q, ks, vs, n), n))
+    return out
+
+
+def _held_slices(got: list, want: list, tol: dict, what: str) -> float:
+    """Each slice's ``(o, lse)`` from the kernel against its plain version
+    (:func:`_partials`), an empty slice exactly o = 0 and lse below -1e38:
+    the worst ratio of o to the tolerance."""
+    worst = 0.0
+    for (o, lse, n), (o_p, lse_p, _) in zip(got, want):
+        torch.testing.assert_close(o, o_p, **tol)
+        torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-4)
+        if n == 0 and not (torch.equal(o, torch.zeros_like(o)) and (lse < -1e38).all()):
+            raise AssertionError(f"{what}: an empty slice wrote o != 0 or a finite lse")
+        worst = max(worst, _worst_ratio(o, o_p, tol))
+    return worst
+
+
+def _partial_faulty(q, k, v, length: int, at: str) -> tuple:
+    """A faulty control of the partial entry: its plain version with the
+    softmax weights (``at="p"``) or the output accumulator (``at="acc"``)
+    rounded to bf16, as a kernel that kept either in bf16 would."""
+    from repro_torch.kernels.decode_attention import decode_attention_partial_ref
+
+    o, lse = decode_attention_partial_ref(q.float(), k.float(), v.float(), length)
+    if length == 0:
+        return o, lse
+    if at == "acc":
+        return o.to(torch.bfloat16).float(), lse
+    B, H, D = q.shape
+    KV = k.shape[2]
+    qh = q.float().reshape(B, KV, H // KV, D) * D ** -0.5
+    s = torch.einsum("bgrd,bsgd->bgrs", qh, k[:, :length].float())
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bgrs,bsgd->bgrd", p.to(torch.bfloat16).float(), v[:, :length].float())
+    return (o / p.sum(dim=-1)[..., None]).reshape(B, H, D), lse
+
+
+def _attention_partial_checks(gen: torch.Generator) -> dict:
+    """decode_attention's partial entry against its plain version: bf16 and
+    float32 inputs at olmoe's and gemma3-1b's head layouts over
+    PARTIAL_SLICES of S 544; the float32 output (accumulated in float32
+    from either input) and the combined result held at F32_TOL; faulty
+    combines and bf16 weights or accumulators rejected."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import (combine_partials,
+                                                      decode_attention_partial_cuda,
+                                                      decode_attention_partial_ref)
+
+    S, checks, controls, tol = PROMPT_LEN + NEW_TOKENS, [], {}, F32_TOL
+    for name, (H, KV, D) in PARTIAL_HEADS.items():
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q, k, v = (torch.randn(shape, generator=gen, device=gen.device).to(dt)
+                       for shape in ((REQUESTS, H, D), (REQUESTS, S, KV, D), (REQUESTS, S, KV, D)))
+            for R in PARTIAL_SLICES:
+                for length in PARTIAL_LENGTHS:
+                    got = _partials(q, k, v, length, R, decode_attention_partial_cuda)
+                    want = _partials(q.float(), k.float(), v.float(), length, R,
+                                     decode_attention_partial_ref)
+                    worst = _held_slices(got, want, tol, f"{name} {dtype}")
+                    os_ = torch.stack([o for o, _, _ in got])
+                    lses = torch.stack([lse for _, lse, _ in got])
+                    whole = ref.decode_attention_ref(q.float(), k.float(), v.float(), length)
+                    joined = combine_partials(os_, lses)
+                    torch.testing.assert_close(joined, whole, **tol)
+                    checks.append({"heads": name, "dtype": dtype, "slices": R, "length": length,
+                                   "empty_slices": sum(n == 0 for *_, n in got),
+                                   "slice_worst_ratio": worst,
+                                   "combined_worst_ratio": _worst_ratio(joined, whole, tol),
+                                   "combined_max_abs_err": (joined - whole).abs().max().item()})
+                    if (dtype, R, length) == ("bfloat16", 4, S):
+                        faulty = {"slice_dropped": combine_partials(os_[:-1], lses[:-1]),
+                                  "lse_ignored": os_.mean(dim=0)}
+                        controls[name] = {c: _worst_ratio(out, whole, tol)
+                                          for c, out in faulty.items()}
+                        for at in ("p", "acc"):
+                            bad = _partials(q, k, v, length, R,
+                                            lambda *a, at=at: _partial_faulty(*a, at=at))
+                            controls[name][f"{at}_bf16"] = max(
+                                _worst_ratio(o, o_p, tol) for (o, _, _), (o_p, _, _)
+                                in zip(bad, want))
+                        passed = [c for c in PARTIAL_CONTROLS if controls[name][c] <= 1.0]
+                        if passed:
+                            raise AssertionError(f"tolerance {tol} lets faulty partials "
+                                                 f"{passed} pass")
+            del q, k, v
+    return {"checks": checks, "tolerance": tol, "controls": controls,
+            "max_combined_worst_ratio": max(c["combined_worst_ratio"] for c in checks),
+            "max_slice_worst_ratio": max(c["slice_worst_ratio"] for c in checks)}
+
+
+def _serve_attention_cases() -> list:
+    """The decode_attention calls the sharded_serve phase's ranks make,
+    derived from SHARDED_SERVE_RUNS, SERVE_MESH and the configs: for each
+    run, rank and attention layer, the entry ("whole" where the rows divide
+    over data, else "partial" on the rank's slice of S), the shapes of q and
+    of its K/V, the cache's slots S, the slices R it is cut in, and the
+    positions decoded (the engine's prompt a token a step; after a prefill,
+    which attends in plain torch, the new tokens alone).  Equal entries
+    merged: ``[{"entry", "q", "kv", "S", "R", "positions"}]``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.attention import kv_heads_read
+    from repro_torch.models.model import layer_blocks
+
+    mesh, d, m = Mesh(SERVE_MESH), SERVE_MESH["data"], SERVE_MESH["model"]
+    cases = {}
+    for arch, B, P, n_new, how in SHARDED_SERVE_RUNS:
+        cfg = get_config(arch)
+        if cfg.attn_kind == "mla" or cfg.n_heads % m:
+            raise AssertionError(f"{arch}: the cases assume head-parallel GQA attention")
+        rows_cut, L = B % d == 0, P + n_new
+        Bl, Hl, D = (B // d if rows_cut else B), cfg.n_heads // m, cfg.hd
+        for rank in range(d * m):
+            KVl = (cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0
+                   else kv_heads_read(cfg, mesh.bind_abstract(rank)).numel())
+            for li, (block, _) in enumerate(layer_blocks(cfg)):
+                if block not in ("dense", "moe"):
+                    continue
+                local = cfg.attn_kind == "sliding" and not cfg.is_global_attn(li)
+                S = min(L, cfg.sliding_window) if local else L
+                R = 1 if rows_cut else d
+                key = ("whole" if rows_cut else "partial", (Bl, Hl, D), (Bl, S // R, KVl, D), S)
+                cases.setdefault(key, set()).update(range(P if how == "prefill" else 0, L))
+    return [{"entry": e, "q": q, "kv": kv, "S": S, "R": S // kv[1], "positions": sorted(pos)}
+            for (e, q, kv, S), pos in cases.items()]
+
+
+def _serve_attention_calls(cases: list) -> set:
+    """``(entry, q shape, K/V shape, length)`` of every call the cases make
+    on some rank: the valid slots of each rank's slice at each position."""
+    calls = set()
+    for c in cases:
+        Sl = c["kv"][1]
+        for pos in c["positions"]:
+            for r in range(c["R"]):
+                n = min(max(min(pos + 1, c["S"]) - r * Sl, 0), Sl)
+                calls.add((c["entry"], tuple(c["q"]), tuple(c["kv"]), n))
+    return calls
+
+
+def _serve_attention_checks(gen: torch.Generator) -> dict:
+    """decode_attention at the shapes and lengths the sharded_serve ranks
+    give it (:func:`_serve_attention_cases`), float32 as there, against the
+    plain versions at F32_TOL.  Each position's cache holds the tokens up to
+    it at slot ``pos % S`` (a local layer's ring wraps past S) and random
+    values in the slots not yet written; the whole kernel over it, or the
+    partial entry over each of its R slices combined in rank order, against
+    the plain attention over the ordered window of the last ``min(pos + 1,
+    S)`` tokens.  The partial cases also at no token and at one (a slice
+    with no valid slot)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import (combine_partials, decode_attention_cuda,
+                                                      decode_attention_partial_cuda,
+                                                      decode_attention_partial_ref)
+
+    out, tol, dev = [], F32_TOL, gen.device
+    for c in _serve_attention_cases():
+        (B, H, D), (_, _, KV, _), S, R = c["q"], c["kv"], c["S"], c["R"]
+        q = torch.randn((B, H, D), generator=gen, device=dev)
+        hist_k, hist_v = (torch.randn((B, c["positions"][-1] + 1, KV, D), generator=gen,
+                                      device=dev) for _ in range(2))
+        positions = ([-1, 0] if c["entry"] == "partial" else []) + c["positions"]
+        worst, err, empty = 0.0, 0.0, 0
+        for pos in positions:
+            lo = max(0, pos + 1 - S)
+            ks, vs = (torch.randn((B, S, KV, D), generator=gen, device=dev) for _ in range(2))
+            idx = torch.arange(lo, pos + 1, device=dev)
+            ks[:, idx % S], vs[:, idx % S] = hist_k[:, idx], hist_v[:, idx]
+            n = pos + 1 - lo
+            if c["entry"] == "whole":
+                o = decode_attention_cuda(q, ks, vs, n)
+            else:
+                got = _partials(q, ks, vs, n, R, decode_attention_partial_cuda)
+                want = _partials(q, ks, vs, n, R, decode_attention_partial_ref)
+                worst = max(worst, _held_slices(got, want, tol, str(c)))
+                empty += sum(m == 0 for *_, m in got)
+                o = combine_partials(torch.stack([g[0] for g in got]),
+                                     torch.stack([g[1] for g in got]))
+            if n == 0:
+                if not torch.equal(o, torch.zeros_like(o)):
+                    raise AssertionError(f"{c}: no valid slot combined to o != 0")
+                continue
+            whole = ref.decode_attention_ref(q, hist_k[:, lo:pos + 1], hist_v[:, lo:pos + 1], n)
+            torch.testing.assert_close(o, whole, **tol)
+            worst = max(worst, _worst_ratio(o, whole, tol))
+            err = max(err, (o - whole).abs().max().item())
+        out.append({**c, "positions": [positions[0], positions[-1]], "checked": len(positions),
+                    "empty_slices": empty, "worst_ratio": worst, "max_abs_err": err})
+        del q, hist_k, hist_v, ks, vs
+    return {"dtype": "float32", "tolerance": tol, "cases": out,
+            "max_worst_ratio": max(c["worst_ratio"] for c in out)}
+
+
+def _attention_partial(gen: torch.Generator) -> dict:
+    """decode_attention's partial entry (see the module's doc): the checks of
+    :func:`_attention_partial_checks` and :func:`_serve_attention_checks`,
+    and device time on half of S 544 at olmoe's layout beside the whole
+    kernel on all of it."""
+    from repro_torch.kernels.decode_attention import decode_attention_partial_cuda
+
+    S = PROMPT_LEN + NEW_TOKENS
+    checks = _attention_partial_checks(gen)
+    serve = _serve_attention_checks(gen)
+    # device time: the partial on half of S (a data rank's slice) beside the
+    # whole kernel on all of S, olmoe's layout in bf16, each beside SDPA
+    H, KV, D = OLMOE_HEADS["H"], OLMOE_HEADS["KV"], OLMOE_HEADS["D"]
+    q, copies = _attention_copies(gen, REQUESTS, H, KV, D, S, 1)
+    k, v = copies[0][:2]
+    half = [(k[:, :S // 2].contiguous(), v[:, :S // 2].contiguous(),
+             k[:, :S // 2].permute(0, 2, 1, 3).contiguous(),
+             v[:, :S // 2].permute(0, 2, 1, 3).contiguous())]
+    q4 = q[:, :, None, :].contiguous()
+    part = _profile_calls(
+        {"decode_attention": lambda c: decode_attention_partial_cuda(q, c[0], c[1], S // 2),
+         "library": lambda c: F.scaled_dot_product_attention(q4, c[2], c[3], enable_gqa=True)},
+        half)
+    whole = _attention_device_ms(q, copies, S)
+    nbytes = q.numel() * 2 + 2 * REQUESTS * (S // 2) * KV * D * 2 + q.numel() * 4 + 4 * REQUESTS * H
+    b_ms, b_by = bound_ms(nbytes, 4 * REQUESTS * H * (S // 2) * D, "bfloat16")
+    return {**checks, "sharded_serve_shapes": serve,
+            "timed": {"q": [REQUESTS, H, D], "slice": [REQUESTS, S // 2, KV, D],
+                      "partial_device_ms": part["decode_attention"],
+                      "sdpa_on_slice_device_ms": part["library"],
+                      "whole_S_device_ms": whole["decode_attention"],
+                      "sdpa_whole_S_device_ms": whole["library"],
+                      "partial_bound_ms": b_ms, "partial_bound_by": b_by}}
+
+
 def _family_heads(gen: torch.Generator) -> dict:
     """decode_attention at the head layout of each GQA config of FAMILIES and
     of zamba2-2.7b's shared block (B 4, bf16), at the families phase's S
@@ -1101,6 +1388,7 @@ def phase_kernels() -> dict:
             "decode_attention": _attention_path(gen, olmoe["H"], olmoe["KV"], olmoe["D"],
                                                 PROMPT_LEN + NEW_TOKENS),
             "decode_attention_checks": checks, "decode_attention_controls": controls,
+            "decode_attention_partial": _attention_partial(gen),
             "rmsnorm_gemma3_1b": rms_gemma, "decode_attention_gemma3_1b": att,
             "decode_attention_variants": variants,
             "decode_attention_heads": _attention_sweep(gen, sms),
@@ -2479,6 +2767,267 @@ def phase_remat(card: str) -> dict:
             "microbatches": mb, "steps": REMAT_STEPS, "policies": out, "card": card}
 
 
+def _serve_recording(model, engine, prompts, n_new: int) -> dict:
+    """``engine.generate(prompts, n_new)`` with the logits of its first and
+    last decode steps and the collectives of its last step recorded."""
+    from repro_torch.core.capture import capture_collectives
+
+    step, seen = model.decode_step, {"logits": [], "ops": None, "steps": 0}
+
+    def recording(*args, **kwargs):
+        with capture_collectives() as ops:
+            out = step(*args, **kwargs)
+        seen["steps"] += 1
+        seen["ops"] = ops
+        if seen["steps"] == 1:
+            seen["logits"].append(out[0].float().cpu())
+        seen["last"] = out[0]
+        return out
+
+    model.decode_step = recording
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = engine.generate(prompts, n_new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del model.decode_step  # the class's method again (no cycle holds the model)
+    seen["logits"].append(seen.pop("last").float().cpu())
+    return {"outputs": outs, "wall_s": wall, **seen}
+
+
+def _prefill_and_decode(model, prompts, n_new: int) -> dict:
+    """The prompts through ``Model.prefill`` into caches of prompt + n_new
+    slots, then greedy decode steps: the same record as
+    :func:`_serve_recording` (the prefill's logits first, the last step's
+    last, the last step's collectives)."""
+    from repro_torch.core.capture import capture_collectives
+    from repro_torch.distributed.collectives import EXCHANGED
+    from repro_torch.distributed.sharding import rows_spec, shard_tensor
+
+    mesh, (B, P) = model.mesh, np.shape(prompts)
+    tokens = torch.tensor(prompts, device=model.device)
+    rows = None if mesh is None else rows_spec(mesh, B)
+    mine = tokens if rows is None else shard_tensor(tokens, (rows,), mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(mine, batch=B, max_len=P + n_new)
+    first, new = logits.float().cpu(), []
+    prefill_exchanged = dict(EXCHANGED)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for k in range(n_new):
+        nxt = torch.argmax(logits, dim=-1)
+        new.append(nxt)
+        with capture_collectives() as ops:
+            logits, caches = model.decode_step(caches, nxt, P + k)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    outs = [list(p) + seq for p, seq in zip(prompts, torch.stack(new, 1).cpu().tolist())]
+    return {"outputs": outs, "logits": [first, logits.float().cpu()], "ops": ops,
+            "steps": n_new, "wall_s": t2 - t1, "prefill_s": t1 - t0,
+            "prefill_exchanged": prefill_exchanged}
+
+
+def _serve_run(model, B: int, P: int, n_new: int, how: str) -> dict:
+    """One run of SHARDED_SERVE_RUNS on ``model``, seed-0 prompts."""
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    prompts = np.random.default_rng(0).integers(1, model.cfg.vocab, (B, P)).tolist()
+    if how == "prefill":
+        return _prefill_and_decode(model, prompts, n_new)
+    return _serve_recording(model, ServeEngine(model, ServeConfig(max_batch=B)), prompts, n_new)
+
+
+def _one_rank_serve(arch: str, B: int, P: int, n_new: int, how: str) -> dict:
+    """One run of SHARDED_SERVE_RUNS on one rank, float32, seed-0 weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config(arch).with_(param_dtype=torch.float32)
+    model = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    res = _serve_run(model, B, P, n_new, how)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"outputs": res["outputs"], "logits": res["logits"], "steps": res["steps"],
+            "ms_per_step": res["wall_s"] * 1e3 / res["steps"]}
+
+
+def _sharded_serve_rank(rank: int, world: int, runs: tuple) -> list:
+    """One rank of the sharded_serve phase, in its own spawned process: each
+    run at full width on SERVE_MESH in float32, its weights drawn whole from
+    seed 0 and sliced; the kernels' counts and the exchanged bytes set to 0
+    just before the engine's run and read just after; then the abstract
+    capture of its decode step.  Each call to the attention kernels in the
+    run is recorded, ``(entry, q shape, K/V shape, length)``, for the phase
+    to hold against the shapes the kernels phase checked."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed.collectives import EXCHANGED
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      decode_attention_partial_cuda)
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import Model
+    from repro_torch.models.model import decode_launches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    mesh = Mesh(SERVE_MESH).bind()
+    out = []
+
+    def recording(entry: str, fn, seen: set):
+        def call(q, k, v, length):
+            if q.dtype != torch.float32:
+                raise AssertionError(f"{entry} on {q.dtype}: the kernels phase checks float32")
+            seen.add((entry, tuple(q.shape), tuple(k.shape), int(length)))
+            return fn(q, k, v, length)
+        return call
+
+    for arch, B, P, n_new, how in runs:
+        cfg = get_config(arch).with_(param_dtype=torch.float32)
+        t0 = time.perf_counter()
+        model = Model(cfg, mesh=mesh).init(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        caches = model.init_caches(B, P + n_new)
+        cache_bytes = sum(t.numel() * t.element_size() for c in caches for t in c.values())
+        del caches
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        rmsnorm_cuda.launches = decode_attention_cuda.launches = 0
+        decode_attention_partial_cuda.launches = 0
+        EXCHANGED.clear()
+        calls = set()
+        ops.decode_attention_cuda = recording("whole", decode_attention_cuda, calls)
+        ops.decode_attention_partial_cuda = recording("partial", decode_attention_partial_cuda,
+                                                      calls)
+        try:
+            res = _serve_run(model, B, P, n_new, how)
+        finally:
+            ops.decode_attention_cuda = decode_attention_cuda
+            ops.decode_attention_partial_cuda = decode_attention_partial_cuda
+        launches = {"rmsnorm": rmsnorm_cuda.launches,
+                    "decode_attention": decode_attention_cuda.launches}
+        partial = decode_attention_partial_cuda.launches
+        steps = res["steps"]
+        # the decode steps' (a prefill's apart), read before the trace adds its own
+        pre = res.get("prefill_exchanged", {})
+        exchanged = {k: (v - pre.get(k, 0)) / steps for k, v in EXCHANGED.items()}
+        per_step = decode_launches(cfg)
+        # a prefill applies each norm once and attends in plain torch
+        expect = {k: n * steps + (n if (how, k) == ("prefill", "rmsnorm") else 0)
+                  for k, n in per_step.items()}
+        if launches != expect:
+            raise AssertionError(f"rank {rank} {arch} B {B}: launches {launches} in {steps} "
+                                 f"steps ({how}), not {expect}")
+        spec = model.cache_specs(B, P + n_new)[0]
+        sequence_parallel = any(len(s) > 1 and s[1] is not None for s in spec.values())
+        if partial != (launches["decode_attention"] if sequence_parallel else 0):
+            raise AssertionError(f"rank {rank} {arch}: {partial} partial launches")
+        t1 = time.perf_counter()
+        abstract = trace_cell(cfg, ShapeSpec("serve", P + n_new, B, "decode"), Mesh(SERVE_MESH),
+                              rank)
+        trace_s = time.perf_counter() - t1
+        if res["ops"] != abstract["ops"]:
+            raise AssertionError(f"rank {rank} {arch} B {B}: the last decode step's schedule "
+                                 f"is not the abstract capture: "
+                                 f"{_first_difference(res['ops'], abstract['ops'])}")
+        if abstract["cost"].kernel_calls != {k: n for k, n in per_step.items() if n}:
+            raise AssertionError(f"rank {rank} {arch}: abstract kernel calls "
+                                 f"{abstract['cost'].kernel_calls}")
+        out.append({
+            "rank": rank, "coord": mesh.coord, "arch": arch, "requests": B, "prompt_by": how,
+            "prefill_s": res.get("prefill_s"), "expected_launches": expect,
+            "bytes_exchanged_by_prefill": pre,
+            "outputs": res["outputs"], "logits": [t.numpy() for t in res["logits"]],
+            "steps": steps, "ms_per_step": res["wall_s"] * 1e3 / steps, "init_s": init_s,
+            "launches": launches, "partial_launches": partial,
+            "attention_calls": sorted(calls), "launches_per_step": per_step, "cache_spec_entry_0": spec,
+            "sequence_parallel": sequence_parallel,
+            "bytes_exchanged_per_step": exchanged,
+            "ops_per_step": len(res["ops"]), "schedule_equal_to_abstract": True,
+            "abstract_trace_s": trace_s,
+            "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+            "cache_bytes": cache_bytes, "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_serve(card: str) -> dict:
+    """SHARDED_SERVE_RUNS on SERVE_MESH (see the module's doc): the one-rank
+    runs first, in this process, each freed before the next; then one world
+    of 4 ranks for all of them."""
+    from repro_torch.distributed import run_world
+
+    t0 = time.perf_counter()
+    single = [_one_rank_serve(*run) for run in SHARDED_SERVE_RUNS]
+    single_s = time.perf_counter() - t0
+    world = SERVE_MESH["data"] * SERVE_MESH["model"]
+    ranks = run_world(_sharded_serve_rank, world, SHARDED_SERVE_RUNS, timeout=900)
+    # the kernels phase held the attention kernels at these calls' shapes
+    checked = _serve_attention_calls(_serve_attention_cases())
+    seen = {(e, tuple(q), tuple(kv), n) for r in ranks for run in r
+            for e, q, kv, n in run["attention_calls"]}
+    if not seen <= checked or {c[:3] for c in seen} != {c[:3] for c in checked}:
+        raise AssertionError(f"the ranks' attention calls are not those the kernels phase "
+                             f"checked: {sorted(seen - checked)[:4]} unchecked, shapes "
+                             f"{sorted({c[:3] for c in checked} - {c[:3] for c in seen})} unseen")
+    runs = []
+    for i, (arch, B, P, n_new, how) in enumerate(SHARDED_SERVE_RUNS):
+        want = single[i]
+        per_rank, errs = [], []
+        for r in ranks:
+            got = r[i]
+            if got["outputs"] != want["outputs"]:
+                raise AssertionError(f"rank {got['rank']} {arch} B {B}: tokens differ from "
+                                     f"the one-rank run's")
+            d, m = got["coord"]["data"], got["coord"]["model"]
+            n = SERVE_MESH["data"]
+            rows = slice(None) if B % n else slice(d * B // n, (d + 1) * B // n)
+            err = [float((torch.from_numpy(a) - b[rows]).abs().max())
+                   for a, b in zip(got["logits"], want["logits"])]
+            if not max(err) <= SHARDED_SERVE_TOL:
+                raise AssertionError(f"rank {got['rank']} {arch} B {B}: first / last step "
+                                     f"logits differ by {err} > {SHARDED_SERVE_TOL}")
+            errs.append(max(err))
+            per_rank.append({k: got[k] for k in (
+                "rank", "coord", "ms_per_step", "prefill_s", "init_s", "launches",
+                "partial_launches", "bytes_exchanged_per_step", "bytes_exchanged_by_prefill",
+                "ops_per_step", "abstract_trace_s", "param_bytes", "cache_bytes",
+                "peak_mem_bytes")} | {"first_last_logit_max_abs_err": err})
+        first = ranks[0][i]
+        runs.append({
+            "arch": arch, "requests": B, "prompt_len": P, "new_tokens": n_new, "prompt_by": how,
+            "steps": first["steps"], "sequence_parallel": first["sequence_parallel"],
+            "cache_spec_entry_0": first["cache_spec_entry_0"],
+            "launches_per_step_and_rank": first["launches_per_step"],
+            "launches_all_ranks": {k: sum(r[i]["launches"][k] for r in ranks)
+                                   for k in first["launches"]},
+            "tokens_equal": True, "schedules_equal_to_abstract": True,
+            "logit_max_abs_err": max(errs), "one_rank_ms_per_step": want["ms_per_step"],
+            "ms_per_step_median": float(np.median([r[i]["ms_per_step"] for r in ranks])),
+            "per_rank": per_rank})
+    return {"phase": "sharded_serve", "mesh": SERVE_MESH, "ranks": world, "dtype": "float32",
+            "tolerance": SHARDED_SERVE_TOL, "attention_calls_checked": len(seen),
+            "attention_shapes": sorted({c[:3] for c in seen}), "exchange": "gloo via host",
+            "note": "4 ranks are 4 processes sharing one card; ms a step measures the host "
+                    "exchange, not a speed",
+            "runs": runs, "one_rank_s": single_s, "seconds": time.perf_counter() - t0,
+            "card": card}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2525,6 +3074,8 @@ def main() -> int:
     emit(moe_ep)
     done("moe_ep and pipeline", pipeline)
     remat = done("remat", phase_remat(card))
+    torch.cuda.empty_cache()
+    serve_sharded = done("sharded_serve", phase_sharded_serve(card))
     emit({"phase": "timing", "seconds_at_end_of": ended})
 
     def launches_and_device_ms(name):
@@ -2551,6 +3102,11 @@ def main() -> int:
             paths[f"{TRAIN_MAIN} sharded train"] = sharded["launches"][name]
             paths.update({f"{TRAIN_MAIN} remat {p} train": r["launches"][name]
                           for p, r in remat["policies"].items()})
+        for run in serve_sharded["runs"]:  # all 4 ranks
+            if name in run["launches_all_ranks"]:
+                tag = ", sequence-parallel" if run["sequence_parallel"] else ""
+                paths[f"{run['arch']} sharded serve B {run['requests']}{tag}"] = \
+                    run["launches_all_ranks"][name]
         return {"launches_by_path": paths} if paths else {}
 
     emit({"kernels": [

@@ -4,8 +4,8 @@
 Four shapes per LM architecture.  ``decode_*`` / ``long_*`` are serve steps
 (one new token against a KV cache of seq_len), not train steps;
 ``long_500k`` needs sub-quadratic context handling and is skipped for pure
-full-attention archs.  The port's dry run writes the decode cells as not
-ported yet (``launch/dryrun.py``).
+full-attention archs.  The port's dry run traces every cell
+(``launch/dryrun.py``).
 """
 
 from __future__ import annotations

@@ -13,7 +13,10 @@ tensors (``Model.abstract``), and counts:
   row, also those past the last offset), as the card computes them.  The
   kernels' operators (``repro_torch::rmsnorm`` and its backward) are given
   a formula of 0: they do no products, as XLA's dot count does not count
-  ``rms_norm``;
+  ``rms_norm``; nor do ``repro_torch::decode_attention`` and its partial
+  entry, which XLA's dot count does see (the reference's decode attends in
+  einsums), so a decode cell's attention products are not in the port's
+  dot FLOPs;
 - **bytes**: the operands plus the results of each aten op, the eager
   port's HBM traffic at one kernel an op, where the reference's is XLA's
   proxy.  A view, an allocation and an op whose results only alias its
@@ -26,7 +29,9 @@ tensors (``Model.abstract``), and counts:
   only this sum);
 - **output bytes**: the storages of the step's outputs that are not
   arguments;
-- **kernel calls**: the calls to each of the port's kernel operators.
+- **kernel calls**: the calls to each of the port's kernels, one a call of
+  its operators (``decode_attention_partial`` is an entry of the
+  ``decode_attention`` kernel and counts as one of its calls).
 
 The port's loops run in Python, so every iteration is counted: there is no
 ``while``-trip problem.
@@ -45,11 +50,14 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import FlopCounterMode
 
-from ..kernels import rmsnorm as _rmsnorm  # noqa: F401  (registers the kernels' operators)
+# importing the kernels' modules registers their operators
+from ..kernels import decode_attention as _attention  # noqa: F401
+from ..kernels import rmsnorm as _rmsnorm  # noqa: F401
 
 __all__ = ["StepCost", "count_cost", "output_bytes", "grouped_mm_flop", "tensor_bytes"]
 
 KERNEL_NAMESPACE = "repro_torch"
+KERNEL_OF = {"decode_attention_partial": "decode_attention"}  # operator -> its kernel
 
 _ALLOCATIONS = {torch.ops.aten.empty.memory_format, torch.ops.aten.empty_like.default,
                 torch.ops.aten.empty_strided.default, torch.ops.aten.new_empty.default,
@@ -123,7 +131,7 @@ class _CostMode(TorchDispatchMode):
         out = func(*args, **kwargs)
         self.cost.ops += 1
         if func.namespace == KERNEL_NAMESPACE:
-            self.calls[func._opname] += 1
+            self.calls[KERNEL_OF.get(func._opname, func._opname)] += 1
         ins = [t for t in tree_flatten((args, kwargs))[0] if isinstance(t, torch.Tensor)]
         outs = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
         in_storages = {t.untyped_storage()._cdata for t in ins}
@@ -148,7 +156,9 @@ def count_cost(arguments: Iterable[torch.Tensor] = ()) -> Iterator[StepCost]:
     cost.argument_bytes = live.bytes
     custom = {torch.ops.aten._grouped_mm: grouped_mm_flop,
               torch.ops.repro_torch.rmsnorm: _no_dot,
-              torch.ops.repro_torch.rmsnorm_bwd: _no_dot}
+              torch.ops.repro_torch.rmsnorm_bwd: _no_dot,
+              torch.ops.repro_torch.decode_attention: _no_dot,
+              torch.ops.repro_torch.decode_attention_partial: _no_dot}
     flops = FlopCounterMode(display=False, custom_mapping=custom)
     with flops, _CostMode(cost, live, calls):
         yield cost

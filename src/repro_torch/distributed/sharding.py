@@ -21,6 +21,11 @@ partitioned like its storage: an all-gather of each sharded dim, whose
 backward keeps this rank's slice, and an all-reduce of the gradient over
 the axes where the use is partial (the batch axes the shard spans, where
 every rank saw other rows, and ``sum_over``).
+
+A served batch's rows and caches are placed by :func:`rows_spec` and
+:func:`cache_leaf_spec`, the rules of the reference's ``_cache_leaf_spec``
+(``repro/launch/specs.py``) with three deviations that follow from what the
+port computes, each named where it applies (:data:`CACHE_DEVIATIONS`).
 """
 
 from __future__ import annotations
@@ -46,6 +51,9 @@ __all__ = [
     "gather_params",
     "use_full",
     "use_params",
+    "rows_spec",
+    "cache_leaf_spec",
+    "CACHE_DEVIATIONS",
 ]
 
 Spec = Tuple  # one entry a dim: None, an axis name or a tuple of them
@@ -223,3 +231,91 @@ def use_full(t: torch.Tensor, spec: Spec, mesh, sum_over=()) -> torch.Tensor:
 def use_params(p, specs: Dict[str, Spec], mesh, sum_over=()) -> Dict[str, torch.Tensor]:
     """:func:`use_full` of every tensor of a block's parameter dict."""
     return {k: use_full(v, specs.get(k, ()), mesh, sum_over) for k, v in p.items()}
+
+
+# ---------------------------------------------------------------------------
+# the placement of a served batch and its caches
+# ---------------------------------------------------------------------------
+
+CACHE_DEVIATIONS = {  # name: where the port's cache placement leaves the reference's
+    "recurrent_whole": "(a) a Mamba or xLSTM state is cut only by its batch rows: those "
+                       "blocks run whole on every rank, so no state dim goes over model, "
+                       "nor over data when the rows are not cut",
+    "kv_heads_read": "(b) head-parallel attention whose KV heads model does not divide: "
+                     "the rank holds the KV heads its query heads read, as prefill "
+                     "returns them; without head-parallel attention, every KV head",
+    "pod_rows": "(c) the cache rows follow the token rows over the batch axes "
+                "(pod, data), as batch_spec places them, and are not cut where those "
+                "axes do not divide the batch",
+}
+
+
+def rows_spec(mesh, batch: int):
+    """The spec entry of a served batch's rows: the mesh's batch axes of more
+    than one rank where they divide ``batch``, else None (every rank holds
+    every row: the sequence-parallel case)."""
+    axes = tuple(a for a in mesh.batch_axes if mesh.shape[a] > 1)
+    n = mesh.axis_size(axes)
+    if n == 1 or batch % n:
+        return None
+    return axes[0] if len(axes) == 1 else axes
+
+
+def _trim(parts) -> Spec:
+    parts = list(parts)
+    while parts and parts[-1] is None:
+        parts.pop()
+    return tuple(parts)
+
+
+def cache_leaf_spec(shape: Sequence[int], mesh, batch: int, role: str = "kv", *,
+                    head_parallel: bool = True) -> Tuple[Spec, Tuple[str, ...]]:
+    """``(spec, deviations)`` of one cache tensor of the global ``shape``.
+
+    ``role``: "kv" (a GQA ``k`` / ``v`` ``[B, L, KV, hd]``; ``head_parallel``
+    says whether its attention computes the rank's own query heads), "latent"
+    (MLA's ``c_kv`` / ``k_pe`` ``[B, L, r]``) or "state" (a recurrent
+    block's).  The reference's rules: the rows over the batch axes where
+    they divide them (:func:`rows_spec`); a 4-D cache's dim 2 (KV heads)
+    over ``model`` where it divides; a 3-D one's dim 1 (a latent's L) over
+    ``model`` where it divides; where the rows are not cut, dim 1 over
+    ``data`` where it divides (``data`` wins over ``model``).
+    ``deviations`` names each :data:`CACHE_DEVIATIONS` entry where the port
+    leaves those rules: (c) the rows placed over (pod, data); (a) a state's
+    dims past the rows left whole; (b) a KV cache's heads left uncut where
+    its attention is head-parallel and ``model`` does not divide them (the
+    leaf holds the heads its rank reads on dim 2) or where it is not
+    head-parallel and ``model`` would divide them.
+    """
+    dsz, msz = mesh.shape.get("data", 1), mesh.shape.get("model", 1)
+    parts: List = [None] * len(shape)
+    devs = []
+    if shape[0] == batch:
+        parts[0] = rows_spec(mesh, batch)
+        if mesh.shape.get("pod", 1) > 1 and (parts[0] is not None
+                                             or (dsz > 1 and batch % dsz == 0)):
+            devs.append("pod_rows")  # the reference cuts them over data alone
+    if len(shape) >= 4 and msz > 1 and shape[2] % msz == 0:
+        parts[2] = "model"
+    elif len(shape) == 3 and msz > 1 and shape[1] % msz == 0:
+        parts[1] = "model"
+    if parts[0] is None and len(shape) >= 3 and dsz > 1 and shape[1] % dsz == 0:
+        parts[1] = "data"
+    if role == "state" and any(parts[1:]):
+        parts[1:] = [None] * (len(shape) - 1)
+        devs.append("recurrent_whole")
+    elif role == "kv" and msz > 1 and (not head_parallel or shape[2] % msz):
+        if head_parallel or parts[2] == "model":
+            devs.append("kv_heads_read")
+        parts[2] = None
+    return _trim(parts), tuple(devs)
+    if role == "kv":
+        if head_parallel and msz > 1 and shape[2] % msz == 0:
+            parts[2] = "model"
+        elif (head_parallel and msz > 1) or (len(ref) > 2 and ref[2] == "model"):
+            devs.append("kv_heads_read")
+    elif msz > 1 and shape[1] % msz == 0:
+        parts[1] = "model"
+    if rows is None and dsz > 1 and shape[1] % dsz == 0:
+        parts[1] = "data"
+    return _trim(parts), tuple(devs)

@@ -5,6 +5,8 @@ The reference gets several devices in one process from
 process per rank.  :func:`run_world` spawns them, joins them in a gloo
 process group initialised from a file store in a temporary directory, runs
 ``fn(rank, world_size, *args)`` on each and returns the results by rank.
+The ranks exchange over the loopback interface (``GLOO_SOCKET_IFNAME``,
+unless the caller sets it).
 Everything sent to a rank and back is pickled: pass plain values and return
 numpy arrays or host tensors.  With one card, the ranks share it: gloo
 allows that, NCCL needs a card a rank.
@@ -28,6 +30,9 @@ __all__ = ["run_world"]
 
 def _rank_main(fn, rank, world_size, store, timeout_s, args, results):
     try:
+        # every rank is on this host: exchange over the loopback interface
+        # (gloo's own choice from the host name can be a slower one)
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
         dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                                 world_size=world_size,
                                 timeout=datetime.timedelta(seconds=timeout_s))

@@ -5,8 +5,11 @@
 // decode_attention_pallas (body _kernel).  q[B, H, D], k and v[B, S, KV, D],
 // rep = H / KV query heads share each KV head.  Scores are q.k * D^-0.5 in
 // float32; slots >= length are excluded; the softmax is float32; the output
-// is acc / max(l, 1e-20) in q's dtype (float32 or bfloat16).  One length
-// applies to every batch row, as in the TPU kernel.  The TPU kernel walks the
+// is acc / max(l, 1e-20) in q's dtype (float32 or bfloat16), or in float32
+// with each row's log-sum-exp M + log(max(l, 1e-20)) beside it (the partial
+// output of a slice of S, which a caller joins with other slices' partials).
+// One length applies to every batch row, as in the TPU kernel; a length of 0
+// (a slice with no valid slot) gives o = 0 and a log-sum-exp of about -2e38.  The TPU kernel walks the
 // cache in order on one core, carrying (m, l, acc) in VMEM from one grid step
 // to the next; here the cache is cut across CTAs and the carry becomes a
 // log-sum-exp combine.
@@ -48,7 +51,8 @@
 // them with __ldcg (the first 8 partials of each thread already requested
 // while it makes the weights) and combines in split order 0 .. splits - 1:
 // M = max m_i, o = sum e^(m_i - M) acc_i / max(sum e^(m_i - M) l_i, 1e-20),
-// written once in q's dtype.  No block waits for another, so CTAs that are
+// written once in the output's dtype (and, when asked for, the row's
+// log-sum-exp M + log(max(sum e^(m_i - M) l_i, 1e-20))).  No block waits for another, so CTAs that are
 // not co-resident cannot deadlock and every call gives the same bits; the
 // workspace is per call, so calls on two streams may overlap.  With one split
 // the CTA normalises and writes o itself, with no workspace.  Only slots
@@ -89,12 +93,13 @@ struct Args {
   const void* q;
   const void* k;
   const void* v;
-  void* o;
+  void* o;         // [B, H, D] in q's dtype, or float32 when lse is given
+  float* lse;      // [B, H] float32 log-sum-exp of each row, or null
   float* part_acc;  // [B * KV][splits][rep][D] float32, or null when splits == 1
   float* part_ml;   // [B * KV][splits][rep][2]: m, l
   int* arrivals;    // one counter a (b, g), zeroed before the launch
   int H, KV, S, D;
-  int length;       // valid slots, 1 <= length <= S
+  int length;       // valid slots, 0 <= length <= S
   int chunk, splits, block;
   float scale;
 };
@@ -142,8 +147,9 @@ __device__ __forceinline__ void stage(T* dst, int stride, const T* src, long lon
   cp_async_commit();
 }
 
-// RT: query rows a thread accumulates in step 4 (1, 2, 4 or 8).
-template <typename T, int RT>
+// RT: query rows a thread accumulates in step 4 (1, 2, 4 or 8); O: the
+// output's type (T, or float for a partial output).
+template <typename T, typename O, int RT>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const Args a) {
   constexpr int N = kVec<T>;
@@ -344,7 +350,8 @@ decode_attention_kernel(const Args a) {
   __syncthreads();
   const int bg = b * a.KV + g;
   const long long item = static_cast<long long>(bg) * a.splits + split;
-  T* og = static_cast<T*>(a.o) + qo;
+  O* og = static_cast<O*>(a.o) + qo;
+  float* lse = a.lse == nullptr ? nullptr : a.lse + qo / D;  // [rep] of this (b, g)
   for (int o = tid; o < rep * D / 4; o += kThreads) {  // one float4 of the rep x D sums
     float4 sum = reinterpret_cast<const float4*>(red)[o];
     for (int s = 1; s < pv.GS; ++s) {
@@ -352,11 +359,13 @@ decode_attention_kernel(const Args a) {
       sum.x += x.x, sum.y += x.y, sum.z += x.z, sum.w += x.w;
     }
     if (a.splits == 1) {  // the whole cache: normalise and write o
-      const float den = fmaxf(l_s[o * 4 / D], 1e-20f);
-      og[o * 4] = from_f32<T>(sum.x / den);
-      og[o * 4 + 1] = from_f32<T>(sum.y / den);
-      og[o * 4 + 2] = from_f32<T>(sum.z / den);
-      og[o * 4 + 3] = from_f32<T>(sum.w / den);
+      const int r = o * 4 / D;
+      const float den = fmaxf(l_s[r], 1e-20f);
+      og[o * 4] = from_f32<O>(sum.x / den);
+      og[o * 4 + 1] = from_f32<O>(sum.y / den);
+      og[o * 4 + 2] = from_f32<O>(sum.z / den);
+      og[o * 4 + 3] = from_f32<O>(sum.w / den);
+      if (lse != nullptr && o * 4 % D == 0) lse[r] = m_s[r] + logf(den);
     } else {  // this chunk's partial
       reinterpret_cast<float4*>(a.part_acc + item * rep * D)[o] = sum;
     }
@@ -404,6 +413,7 @@ decode_attention_kernel(const Args a) {
     for (int i = lane; i < a.splits; i += 32) {
       w_s[r * a.splits + i] = expf(w_s[r * a.splits + i] - mx);
     }
+    if (lane == 0) m_s[r] = mx;  // this CTA's own stats were written out above
   }
   __syncthreads();
   for (int o = tid; o < split_stride; o += kThreads) {  // one float4 of o
@@ -433,18 +443,19 @@ decode_attention_kernel(const Args a) {
       sum.x += w * x.x, sum.y += w * x.y, sum.z += w * x.z, sum.w += w * x.w;
     }
     const float den = fmaxf(l, 1e-20f);
-    og[o * 4] = from_f32<T>(sum.x / den);
-    og[o * 4 + 1] = from_f32<T>(sum.y / den);
-    og[o * 4 + 2] = from_f32<T>(sum.z / den);
-    og[o * 4 + 3] = from_f32<T>(sum.w / den);
+    og[o * 4] = from_f32<O>(sum.x / den);
+    og[o * 4 + 1] = from_f32<O>(sum.y / den);
+    og[o * 4 + 2] = from_f32<O>(sum.z / den);
+    og[o * 4 + 3] = from_f32<O>(sum.w / den);
+    if (lse != nullptr && o * 4 % D == 0) lse[r] = m_s[r] + logf(den);
   }
 }
 
 // Launches (or, with blocks_per_sm, reports the CTAs an SM holds for) the
 // instance with RT rows a thread.
-template <typename T, int RT>
+template <typename T, typename O, int RT>
 int run_rt(const Args& a, int B, cudaStream_t stream, int* blocks_per_sm) {
-  auto kernel = decode_attention_kernel<T, RT>;
+  auto kernel = decode_attention_kernel<T, O, RT>;
   const int rep = a.H / a.KV;
   const long long smem =
       Smem(sizeof(T), a.D, rep, a.block, a.splits, PvGrid(rep, a.D / kVec<T>, RT).GS).total;
@@ -478,22 +489,22 @@ int run_rt(const Args& a, int B, cudaStream_t stream, int* blocks_per_sm) {
 // nvec thread groups of a column vector cover rep with: the threads left
 // over split the slots (measured: fewer rows and more row groups are faster
 // than fewer row groups and more slot groups)
-template <typename T>
+template <typename T, typename O>
 int run_t(const Args& a, int B, cudaStream_t stream, int* blocks_per_sm) {
   const int G = kThreads / (a.D / kVec<T>);
   const int rt = (a.H / a.KV + G - 1) / G;
-  if (rt <= 1) return run_rt<T, 1>(a, B, stream, blocks_per_sm);
-  if (rt <= 2) return run_rt<T, 2>(a, B, stream, blocks_per_sm);
-  if (rt <= 4) return run_rt<T, 4>(a, B, stream, blocks_per_sm);
-  return run_rt<T, 8>(a, B, stream, blocks_per_sm);
+  if (rt <= 1) return run_rt<T, O, 1>(a, B, stream, blocks_per_sm);
+  if (rt <= 2) return run_rt<T, O, 2>(a, B, stream, blocks_per_sm);
+  if (rt <= 4) return run_rt<T, O, 4>(a, B, stream, blocks_per_sm);
+  return run_rt<T, O, 8>(a, B, stream, blocks_per_sm);
 }
 
 int run(Args a, int B, int dtype, void* ws, cudaStream_t stream, int* blocks_per_sm) {
   const int vec = dtype == kFloat32 ? kVec<float> : kVec<__nv_bfloat16>;
   if (B <= 0 || B > 65535 || a.KV <= 0 || a.KV > 65535 || a.H % a.KV != 0 ||
       a.H / a.KV > kMaxRep || a.S <= 0 || a.D <= 0 || a.D % vec != 0 || a.D / vec > kMaxVecs ||
-      a.length < 1 || a.length > a.S || a.chunk < 1 || a.splits < 1 || a.block < 1 ||
-      a.block > kMaxBlock || static_cast<long long>(a.splits - 1) * a.chunk >= a.length ||
+      a.length < 0 || a.length > a.S || a.chunk < 1 || a.splits < 1 || a.block < 1 ||
+      a.block > kMaxBlock || static_cast<long long>(a.splits - 1) * a.chunk >= max(a.length, 1) ||
       static_cast<long long>(a.splits) * a.chunk < a.length ||
       (dtype != kFloat32 && dtype != kBFloat16)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -505,26 +516,29 @@ int run(Args a, int B, int dtype, void* ws, cudaStream_t stream, int* blocks_per
     a.part_ml = a.part_acc + items * a.D;
     a.arrivals = reinterpret_cast<int*>(a.part_ml + items * 2);
   }
-  if (dtype == kFloat32) return run_t<float>(a, B, stream, blocks_per_sm);
-  return run_t<__nv_bfloat16>(a, B, stream, blocks_per_sm);
+  if (dtype == kFloat32) return run_t<float, float>(a, B, stream, blocks_per_sm);
+  if (a.lse != nullptr) return run_t<__nv_bfloat16, float>(a, B, stream, blocks_per_sm);
+  return run_t<__nv_bfloat16, __nv_bfloat16>(a, B, stream, blocks_per_sm);
 }
 
 }  // namespace
 
 // dtype: kFloat32 (0) or kBFloat16 (1).  Requires H % KV == 0, H / KV <= 16,
 // D a multiple of the 16-byte vector (4 float32, 8 bf16) and at most 128 such
-// vectors (D <= 512 float32, 1024 bf16), 1 <= length <= S, and 16-byte
+// vectors (D <= 512 float32, 1024 bf16), 0 <= length <= S, and 16-byte
 // aligned, contiguous tensors.  The plan: `splits` chunks of `chunk` slots
-// cover [0, length) with none empty, staged `block` (<= 128) slots at a time.
+// cover [0, length) with none empty (one split for length 0), staged `block`
+// (<= 128) slots at a time.  With lse null, o is in q's dtype; else o is
+// float32 and lse [B, H] float32 receives each row's log-sum-exp.
 // With splits > 1, ws holds B KV splits rep D float32 partial accumulators,
 // then B KV splits rep (m, l) pairs, then one int32 counter a (b, g); the
 // launch zeroes the counters.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                       void* ws, int B, int H, int KV, int S, int D, int length,
-                                       int chunk, int splits, int block, float scale, int dtype,
-                                       void* stream) {
-  const Args a{q, k, v, o, nullptr, nullptr, nullptr, H, KV, S, D, length,
-               chunk, splits, block, scale};
+                                       void* lse, void* ws, int B, int H, int KV, int S, int D,
+                                       int length, int chunk, int splits, int block, float scale,
+                                       int dtype, void* stream) {
+  const Args a{q, k, v, o, static_cast<float*>(lse), nullptr, nullptr, nullptr, H, KV, S, D,
+               length, chunk, splits, block, scale};
   return run(a, B, dtype, ws, static_cast<cudaStream_t>(stream), nullptr);
 }
 
@@ -532,7 +546,7 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
 // minus a CUDA error code.
 extern "C" int decode_attention_blocks_per_sm(int H, int KV, int D, int dtype, int chunk,
                                               int splits, int block) {
-  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, H, KV,
+  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, H, KV,
                splits * chunk, D, splits * chunk, chunk, splits, block, 1.f};
   int blocks = 0;
   const int err = run(a, 1, dtype, nullptr, nullptr, &blocks);

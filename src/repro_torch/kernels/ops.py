@@ -9,9 +9,11 @@ autograd records, on the CPU through the plain version's own autograd.
 A ``meta`` tensor (the dry run's: shapes, no data) takes an explicit branch
 of its own to the kernels' shape functions, the operators
 ``repro_torch::rmsnorm`` / ``rmsnorm_bwd`` (:func:`~.rmsnorm.rmsnorm_op`),
-through the same :class:`~.rmsnorm.RMSNormFunction` where autograd records;
-they allocate the outputs' shapes, launch nothing, and the dry run's dispatch
-modes count each as one kernel call.  A CUDA tensor never takes it: the
+through the same :class:`~.rmsnorm.RMSNormFunction` where autograd records,
+and ``repro_torch::decode_attention`` / ``decode_attention_partial``
+(:func:`~.decode_attention.decode_attention_op`); they allocate the outputs'
+shapes, launch nothing, and the dry run's dispatch modes count each as one
+kernel call.  A CUDA tensor never takes it: the
 operators' dispatch cost some 20 µs of host time a call and 4 ms a gemma3-1b
 decode step more than the wrappers, measured on an NVIDIA H100 80GB HBM3 at
 700 W (``tools/rmsnorm_dispatch_cost.py``; PERF.md), so they are shape
@@ -22,20 +24,34 @@ from __future__ import annotations
 
 import torch
 
-from .decode_attention import decode_attention_cuda, decode_attention_ref
+from .decode_attention import (decode_attention_cuda, decode_attention_op,
+                               decode_attention_partial_cuda, decode_attention_partial_op,
+                               decode_attention_partial_ref, decode_attention_ref)
 from .gemv import gemv_cuda, gemv_ref
 from .gemv_tiles import gemv_tiles_cuda, gemv_tiles_ref
 from .rmsnorm import (RMSNormFunction, rmsnorm_bwd_cuda, rmsnorm_bwd_op, rmsnorm_cuda, rmsnorm_op,
                       rmsnorm_ref)
 
-__all__ = ["decode_attention", "gemv", "gemv_tiles", "rmsnorm"]
+__all__ = ["decode_attention", "decode_attention_partial", "gemv", "gemv_tiles", "rmsnorm"]
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int):
     """Flash-decoding: one token per sequence against the cache prefix ``length``."""
     if q.is_cuda:
         return decode_attention_cuda(q, k, v, length)
+    if q.is_meta:
+        return decode_attention_op(q, k, v, int(length))
     return decode_attention_ref(q, k, v, length)
+
+
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int):
+    """``(o float32, lse)`` of one slice of S against its valid prefix
+    ``length`` (0 allowed), for ``decode_attention.combine_partials``."""
+    if q.is_cuda:
+        return decode_attention_partial_cuda(q, k, v, length)
+    if q.is_meta:
+        return decode_attention_partial_op(q, k, v, int(length))
+    return decode_attention_partial_ref(q, k, v, length)
 
 
 def gemv(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

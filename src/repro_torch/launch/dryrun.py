@@ -22,17 +22,24 @@ FLOPs are dot FLOPs (``flops_per_device`` = ``dot_flops_per_device``),
 the bytes the port can give: ``argument_bytes``, ``param_bytes``,
 ``state_bytes`` (the moments and the float32 master), ``grad_buffer_bytes``
 (from shapes: each ``.grad`` and, with microbatches, the float32
-accumulators), ``peak_bytes`` and
-``output_bytes``.  It adds ``collective_schedule``, ``axes``, ``rank``,
-``coord``, ``kernel_calls`` and ``aten_ops``.  ``model_flops`` is 6 · N_active
-· tokens for train, 2 · N_active · tokens for prefill.
+accumulators), ``cache_bytes`` (a decode cell's caches: the rank's shards),
+``peak_bytes`` and ``output_bytes``.  It adds ``collective_schedule``,
+``axes``, ``rank``, ``coord``, ``kernel_calls`` and ``aten_ops``.
+``model_flops`` is 6 · N_active · tokens for train, 2 · N_active · tokens
+for prefill and 2 · N_active · B for decode (one token a row).
 
-Train cells run ``build_train_step`` (ZeRO-1, AdamW with a float32 master;
-``--remat``, ``--microbatches``); the port's train step takes tokens, so a
-config with a stub frontend trains on its token embedding.  Prefill cells
-run ``Model.prefill`` on the rank's rows.  Decode and ``long_500k`` cells are
-written with status ``not_ported``: they need sharded serving (slice 4d).
-``--trace`` also writes each cell's ``TraceBundle`` (``schedule_to_trace``
+Train cells run ``build_train_step`` (ZeRO-1, AdamW with a float32 master,
+none with ``--no-master``; ``--remat``, ``--microbatches``); the port's
+train step takes tokens, so a config with a stub frontend trains on its
+token embedding.  Prefill cells run ``Model.prefill`` on the rank's rows.
+Decode cells (``decode_32k``, ``long_500k``) run ``Model.decode_step`` on
+the rank's rows (all of them where the batch axes do not divide the batch:
+``long_500k``'s one row, sequence-parallel over ``data``) against the
+rank's shards of a cache of the cell's S slots, placed as
+``Model.cache_specs`` says, at the last slot (``pos`` = S - 1: the valid
+prefix is the whole cache); the placement's deviations from the
+reference's go into ``fallbacks``.  ``--mla-absorbed`` decodes MLA in
+latent space.  ``--trace`` also writes each cell's ``TraceBundle`` (``schedule_to_trace``
 on the cell's topology on ``H100_SXM``) under ``<out>/traces/``: steps 1-2 of
 ``examples/traffic_study.py``; the replay is the reference simulator's.
 
@@ -65,7 +72,7 @@ from ..core.interconnect import H100_SXM
 from ..distributed.sharding import shard_params
 from ..models import Model
 from ..models.common import ModelConfig, count_params
-from ..models.model import param_specs
+from ..models.model import cache_specs, param_specs
 from ..optim import AdamWConfig
 from ..training import TrainConfig, build_train_step
 from .mesh import Mesh, make_mesh_by_name
@@ -75,13 +82,9 @@ from .specs import input_specs, rank_rows
 __all__ = ["run_cell", "trace_cell", "cell_path", "trace_path", "schedule_of", "main", "REFUSED"]
 
 DEFAULT_OUT = "results/dryrun_torch"
-NOT_PORTED = ("decode cells need sharded serving (slice 4d): decode_step on a bound mesh, "
-              "the caches' placement and decode_attention on that path")
 REFUSED = {  # the reference's options the port has no counterpart for
     "attn_constraints": "--attn-constraints: the port holds its shards explicitly; "
                         "there are no sharding constraints to add",
-    "no_master": "--no-master: the port's AdamW keeps a float32 master",
-    "mla_absorbed": "--mla-absorbed: changes only decode cells, which wait for slice 4d",
 }
 
 
@@ -95,7 +98,7 @@ def _state_tensors(state) -> List[torch.Tensor]:
 def _trace_train(model: Model, mesh, shape: ShapeSpec, opts) -> Dict[str, Any]:
     mb = opts.get("microbatches", 1)
     tcfg = TrainConfig(microbatches=mb, remat_policy=opts.get("remat", "none"),
-                       optim=AdamWConfig())
+                       optim=AdamWConfig(master_fp32=not opts.get("no_master", False)))
     step = build_train_step(model, tcfg, mesh)
     state = step.init_state()
     ins = input_specs(model, shape)
@@ -130,18 +133,57 @@ def _trace_prefill(model: Model, mesh, shape: ShapeSpec, opts) -> Dict[str, Any]
                       "grad_buffer_bytes": 0}}
 
 
+def _trace_decode(model: Model, mesh, shape: ShapeSpec, opts) -> Dict[str, Any]:
+    fallbacks = [] if mesh is None else shard_params(model, mesh)
+    ins = input_specs(model, shape)
+    B, S = shape.global_batch, shape.seq_len
+    if mesh is not None:
+        fallbacks += cache_specs(model.cfg, mesh, B, S, model.shardings)[1]
+        ins.update({k: rank_rows(ins[k], mesh) for k in ("tokens", "embeds") if k in ins})
+    caches = ins["caches"]
+    params = list(model.parameters())
+    cache_tensors = [t for entry in caches for t in entry.values()]
+    kv_tensors = [t for cols in caches.kv or () if cols for t in cols.values()]
+    args = params + cache_tensors + kv_tensors + [ins["tokens"]] + ([ins["embeds"]] if "embeds" in ins else [])
+    with capture_collectives() as ops, count_cost(args) as cost:
+        if "embeds" in ins:
+            out = model.decode_step(caches, None, ins["pos"], embeds=ins["embeds"])
+        else:
+            out = model.decode_step(caches, ins["tokens"], ins["pos"])
+    cost.output_bytes = output_bytes(out, args)
+    return {"ops": ops, "cost": cost, "fallbacks": fallbacks,
+            "bytes": {"param_bytes": tensor_bytes(params), "state_bytes": 0,
+                      "grad_buffer_bytes": 0, "cache_bytes": tensor_bytes(cache_tensors)}}
+
+
+_TRACES = {"train": _trace_train, "prefill": _trace_prefill, "decode": _trace_decode}
+# the record of a MoE cell traced in another dtype than bf16 (moe.grouped_ffn)
+MOE_STANDIN_BYTES = ("grouped_ffn: the expert products of a {dtype} trace are taken on bf16 "
+                     "stand-ins (the meta function of _grouped_mm takes bf16 only), so the "
+                     "bytes count two casts the card does not make and the expert weights "
+                     "and activations at half their width: bytes_per_device is approximate")
+
+
 def trace_cell(cfg: ModelConfig, shape: ShapeSpec, mesh: Optional[Mesh], rank: int = 0,
                opts: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-    """Trace global ``rank``'s train or prefill step of ``cfg`` at ``shape``
-    on ``mesh`` (None: the one-device step, no mesh) with no world:
+    """Trace global ``rank``'s train, prefill or decode step of ``cfg`` at
+    ``shape`` on ``mesh`` (None: the one-device step, no mesh) with no world:
     ``{"ops", "cost", "fallbacks", "bytes", "coord", "trace_s"}`` (the
-    schedule, the :class:`~..core.cost.StepCost`, the rules' fallback log and
-    the parameter, state and gradient-buffer bytes)."""
+    schedule, the :class:`~..core.cost.StepCost`, the rules' fallback log
+    with a decode cell's cache deviations, and the parameter, state,
+    gradient-buffer and, for decode, cache bytes; a MoE config in another
+    dtype than bf16 gets :data:`MOE_STANDIN_BYTES` in its fallbacks).
+    ``opts``: ``remat``, ``microbatches``, ``no_master``, ``mla_absorbed``."""
+    opts = opts or {}
+    if opts.get("mla_absorbed"):
+        cfg = cfg.with_(mla_absorbed_decode=True)
     bound = None if mesh is None else mesh.bind_abstract(rank)
     model = Model.abstract(cfg)
     t0 = time.perf_counter()
-    out = (_trace_train if shape.mode == "train" else _trace_prefill)(
-        model, bound, shape, opts or {})
+    out = _TRACES[shape.mode](model, bound, shape, opts)
+    if cfg.n_experts and cfg.param_dtype != torch.bfloat16:
+        dtype = str(cfg.param_dtype).removeprefix("torch.")
+        out["fallbacks"] = [*out["fallbacks"], MOE_STANDIN_BYTES.format(dtype=dtype)]
     return {**out, "coord": {} if bound is None else bound.coord,
             "trace_s": time.perf_counter() - t0}
 
@@ -170,16 +212,13 @@ def run_cell(arch: str, shape_name: str, mesh_name: str,
         rec["status"] = "skipped"
         rec["skip_reason"] = "pure full-attention arch; long_500k skipped per assignment"
         return rec
-    if shape.mode == "decode":
-        rec["status"] = "not_ported"
-        rec["skip_reason"] = NOT_PORTED
-        return rec
     mesh = make_mesh_by_name(mesh_name)
     n_active = Model.abstract(cfg).n_active_params()
     rec.update(n_params=count_params(param_specs(cfg)), n_active_params=n_active,
                axes=dict(mesh.shape), rank=rank)
     factor = 6.0 if shape.mode == "train" else 2.0
-    rec["model_flops"] = factor * n_active * shape.tokens
+    tokens = shape.global_batch if shape.mode == "decode" else shape.tokens
+    rec["model_flops"] = factor * n_active * tokens
     try:
         trace = trace_cell(cfg, shape, mesh, rank, opts)
         ops, cost, trace_s = trace["ops"], trace["cost"], trace["trace_s"]
@@ -248,6 +287,10 @@ def main(argv=None) -> None:
     ap.add_argument("--trace", action="store_true",
                     help="also write each cell's TraceBundle under <out>/traces/")
     ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument("--no-master", action="store_true",
+                    help="train cells: AdamW without the float32 master")
+    ap.add_argument("--mla-absorbed", action="store_true",
+                    help="decode cells: MLA attends in latent space")
     for flag in REFUSED:
         ap.add_argument("--" + flag.replace("_", "-"), action="store_true",
                         help="refused: " + REFUSED[flag])
@@ -259,9 +302,10 @@ def main(argv=None) -> None:
 
     os.makedirs(args.out, exist_ok=True)
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
-    opts = {"remat": args.remat, "microbatches": args.microbatches}
+    opts = {"remat": args.remat, "microbatches": args.microbatches,
+            "no_master": args.no_master, "mla_absorbed": args.mla_absorbed}
     opts = {k: v for k, v in opts.items()
-            if not (v == "none" or (k == "microbatches" and v == 1))}
+            if not (v == "none" or v is False or (k == "microbatches" and v == 1))}
 
     if args.all:
         cells = [(arch, shape_name) for arch in REGISTRY
@@ -272,7 +316,7 @@ def main(argv=None) -> None:
             ap.error("--arch and --shape, or --all, are required")
         cells = [(args.arch, args.shape)]
 
-    n = {"ok": 0, "skipped": 0, "not_ported": 0, "error": 0}
+    n = {"ok": 0, "skipped": 0, "error": 0}
     for mesh_name in meshes:
         for arch, shape_name in cells:
             path = cell_path(args.out, arch, shape_name, mesh_name, args.tag)

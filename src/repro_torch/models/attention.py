@@ -25,8 +25,22 @@ over ``model`` and the heads divide: the input's gradient is summed over
 own heads where the KV heads divide too; else every rank gathers the whole
 K/V projections (their gradient summed over ``model``, as each rank uses
 them for its heads only) and takes the KV heads its query heads read, as
-for gemma3-1b's single KV head.  MLA, and heads that ``model`` does not
+for gemma3-1b's single KV head (:func:`kv_columns`; a decode takes them
+once a batch, with its caches, not at every step).  MLA, and heads that ``model`` does not
 divide, run whole on every rank from gathered weights.
+
+:func:`attention_decode` under a bound mesh takes the same heads, and the
+cache as the rank's shard (``cache_spec``, from ``Model.cache_specs``):
+its rows, its KV heads, and, where the spec cuts the slots (dim 1) over an
+axis, the rank's consecutive slice of them.  A cut cache is attended
+sequence-parallel: slot ``pos % L`` lives on one rank, which alone writes it;
+each rank attends its slice's valid prefix, ``clamp(min(pos + 1, L) - i *
+L / n, 0, L / n)`` slots (0 for a slice past it, a local layer's ring
+included), through ``ops.decode_attention_partial`` for GQA or the same
+partial softmax in plain torch for MLA (naive or absorbed); then one
+all-gather of every rank's ``(o, lse)`` over the axis and
+``combine_partials`` in rank order.  Every rank takes part in every exchange
+whatever ``pos`` is, so the ranks' schedules never depend on it.
 """
 
 from __future__ import annotations
@@ -37,9 +51,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..distributed.collectives import copy_in, reduce_out
+from ..distributed.collectives import copy_in, raw_all_gather, reduce_out
 from ..distributed.sharding import use_full, use_params
 from ..kernels import ops
+from ..kernels.decode_attention import combine_partials
 from .common import ModelConfig, ParamSpec, rms_norm
 
 __all__ = [
@@ -50,6 +65,8 @@ __all__ = [
     "rope_cos_sin",
     "apply_rope",
     "head_parallel",
+    "kv_heads_read",
+    "kv_columns",
 ]
 
 _NEG_INF = -2.0e38
@@ -270,29 +287,53 @@ def head_parallel(cfg: ModelConfig, specs: Dict[str, tuple], mesh) -> bool:
             and specs.get("w_q") == (None, "model") and specs.get("w_o") == ("model",))
 
 
+def kv_heads_read(cfg: ModelConfig, mesh) -> torch.Tensor:
+    """The KV heads the rank's query heads read under head-parallel attention
+    where ``model`` does not divide the KV heads: one copy of each where the
+    local heads share them in order, else one a query head."""
+    m, r = mesh.axis_size("model"), mesh.index("model")
+    Hl, rep = cfg.n_heads // m, cfg.n_heads // cfg.n_kv_heads
+    kv_of = (r * Hl + torch.arange(Hl)) // rep
+    if Hl % rep == 0 or rep % Hl == 0:
+        kv_of = torch.unique_consecutive(kv_of)
+    return kv_of
+
+
+def kv_columns(cfg: ModelConfig, p, specs: Dict[str, tuple], mesh
+               ) -> Optional[Dict[str, torch.Tensor]]:
+    """``{"w_k", "w_v"}``: the columns of the KV heads the rank's query heads
+    read, gathered over ``model``, under head-parallel attention whose KV
+    heads the rank's own shards do not hold (``model`` does not divide them,
+    or w_k / w_v are not cut over it); None elsewhere.  A decode takes them
+    once a batch, with its caches (``Model.init_caches``, ``prefill``)."""
+    m, hd = mesh.axis_size("model"), cfg.hd
+    if not head_parallel(cfg, specs, mesh) or (
+            cfg.n_kv_heads % m == 0 and all(specs.get(w) == (None, "model")
+                                            for w in ("w_k", "w_v"))):
+        return None
+    kv_of = kv_heads_read(cfg, mesh)
+    cols = (kv_of[:, None] * hd + torch.arange(hd)).reshape(-1).to(p["w_k"].device)
+    return {w: use_full(p[w], specs.get(w, ()), mesh, "model").index_select(1, cols)
+            for w in ("w_k", "w_v")}
+
+
+def _local_heads(cfg: ModelConfig, p, specs, mesh, kv=None):
+    """``(config, parameters)`` of the rank's query heads and the KV heads
+    they read, under head-parallel attention; ``kv``: :func:`kv_columns`
+    taken before (else taken here where they are needed)."""
+    kv = kv or kv_columns(cfg, p, specs, mesh) or {w: p[w] for w in ("w_k", "w_v")}
+    local = {"w_q": p["w_q"], **kv, "w_o": p["w_o"]}
+    return cfg.with_(n_heads=cfg.n_heads // mesh.axis_size("model"),
+                     n_kv_heads=kv["w_k"].shape[1] // cfg.hd, head_dim=cfg.hd), local
+
+
 def _attention_sharded(cfg: ModelConfig, p, x, positions, is_global, chunk, mesh, specs):
     if not head_parallel(cfg, specs, mesh):
         return attention_apply(cfg, use_params(p, specs, mesh), x, positions,
                                is_global=is_global, chunk=chunk)
-    m, r = mesh.axis_size("model"), mesh.index("model")
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    Hl, rep = H // m, H // KV
-    if KV % m == 0 and all(specs.get(w) == (None, "model") for w in ("w_k", "w_v")):
-        kv_l, wk, wv = KV // m, p["w_k"], p["w_v"]
-    else:
-        # the KV head each local query head reads; one copy of each where
-        # the local heads share them in order, else one a query head
-        kv_of = (r * Hl + torch.arange(Hl)) // rep
-        if Hl % rep == 0 or rep % Hl == 0:
-            kv_of = torch.unique_consecutive(kv_of)
-        kv_l = kv_of.numel()
-        cols = (kv_of[:, None] * hd + torch.arange(hd)).reshape(-1).to(x.device)
-        wk, wv = (use_full(p[w], specs.get(w, ()), mesh, "model").index_select(1, cols)
-                  for w in ("w_k", "w_v"))
-    local = {"w_q": p["w_q"], "w_k": wk, "w_v": wv, "w_o": p["w_o"]}
-    out, kv = attention_apply(cfg.with_(n_heads=Hl, n_kv_heads=kv_l, head_dim=hd), local,
-                              copy_in(x, mesh, "model"), positions, is_global=is_global,
-                              chunk=chunk)
+    local_cfg, local = _local_heads(cfg, p, specs, mesh)
+    out, kv = attention_apply(local_cfg, local, copy_in(x, mesh, "model"), positions,
+                              is_global=is_global, chunk=chunk)
     return reduce_out(out, mesh, "model"), kv
 
 
@@ -324,22 +365,61 @@ def init_kv_cache(
     }
 
 
-def _cache_write(cache_arr: torch.Tensor, new: torch.Tensor, pos: int) -> None:
-    """Write one token at (ring-buffered) slot ``pos % L``.
+def _slot_and_length(cache_arr: torch.Tensor, pos: int, mesh=None, axis=None):
+    """``(local slot, valid length)`` of this rank's slice of a cache whose
+    ``L`` slots (dim 1) are cut over ``axis`` (whole without one): where the
+    token of ``pos`` goes, ``pos % L``, as an index into the slice (None where
+    another rank holds that slot), and how many of the slice's slots are in
+    the valid prefix ``[0, min(pos + 1, L))``."""
+    n = 1 if axis is None else mesh.axis_size(axis)
+    i = 0 if axis is None else mesh.index(axis)
+    L_loc = cache_arr.shape[1]
+    slot = pos % (L_loc * n) - i * L_loc
+    length = min(max(min(pos + 1, L_loc * n) - i * L_loc, 0), L_loc)
+    return (slot if 0 <= slot < L_loc else None), length
+
+
+def _cache_write(cache_arr: torch.Tensor, new: torch.Tensor, slot) -> None:
+    """Write one token at this rank's slot (nothing where it is another's).
 
     In place: the reference's JAX version returns a new array instead.
     """
-    cache_arr[:, pos % cache_arr.shape[1]] = new.to(cache_arr.dtype)
+    if slot is not None:
+        cache_arr[:, slot] = new.to(cache_arr.dtype)
 
 
-def _mla_decode(cfg: ModelConfig, p, q: torch.Tensor, cache, pos: int) -> torch.Tensor:
-    """MLA attention of one query token over the latent cache: ``o [B, 1, H, hd]``."""
+def _join(o: torch.Tensor, lse: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """Every rank's partial ``(o [B, H, D] float32, lse [B, H])`` along
+    ``axis``, in one all-gather, combined in rank order."""
+    parts = raw_all_gather(torch.cat([o, lse[..., None]], dim=-1)[None], mesh, axis, dim=0)
+    return combine_partials(parts[..., :-1], parts[..., -1])
+
+
+def _softmax(s: torch.Tensor, valid: torch.Tensor, axis):
+    """``(weights, lse)`` of scores ``s [..., S]`` over the ``valid`` slots.
+    Whole (no ``axis``): the softmax, and no lse.  Over a slice of the slots:
+    ``e^(s - m) / l`` there (0 elsewhere, and everywhere for no valid slot)
+    and ``lse = m + log(max(l, 1e-20))``, ``l`` the sum of ``e^(s - m)``."""
+    s = torch.where(valid, s, _NEG_INF)
+    if axis is None:
+        return torch.softmax(s, dim=-1), None
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-20)
+    return p / l, (m + torch.log(l))[..., 0]
+
+
+def _mla_decode(cfg: ModelConfig, p, q: torch.Tensor, cache, length: int, mesh=None,
+                axis=None) -> torch.Tensor:
+    """MLA attention of one query token over the latent cache's first
+    ``length`` slots: ``o [B, 1, H, hd]``.  With ``axis``, the cache is this
+    rank's slice of the slots, and the ranks' partial softmaxes are joined."""
     B = q.shape[0]
     hd, H = cfg.hd, cfg.n_heads
     r, rd = cfg.mla_kv_rank, cfg.mla_rope_dim
     c_kv, k_pe = cache["c_kv"], cache["k_pe"]
     S = c_kv.shape[1]
-    valid = torch.arange(S, device=q.device) <= pos
+    valid = torch.arange(S, device=q.device) < length
     if cfg.mla_absorbed_decode:
         # score and attend in latent space: w_uk folds into the query, w_uv
         # into the output, so the per-token K/V expansion never materialises
@@ -350,19 +430,22 @@ def _mla_decode(cfg: ModelConfig, p, q: torch.Tensor, cache, pos: int) -> torch.
         s = (torch.einsum("bqhr,bsr->bhqs", q_abs.float(), c_kv.float())
              + torch.einsum("bqhp,bsp->bhqs", q_pe.float(), k_pe.float())
              ) * (1.0 / math.sqrt(hd + rd))
-        s = torch.where(valid, s, _NEG_INF)
-        w = torch.softmax(s, dim=-1)
+        w, lse = _softmax(s, valid, axis)
         o_lat = torch.einsum("bhqs,bsr->bqhr", w.to(c_kv.dtype).float(), c_kv.float())
+        if axis is not None:
+            o_lat = _join(o_lat[:, 0], lse[:, :, 0], mesh, axis)[:, None]
         return torch.einsum("bqhr,rhd->bqhd", o_lat, w_uv.float()).to(q.dtype)
     k_nope = (c_kv @ p["w_uk"]).reshape(B, S, H, hd)
     v = (c_kv @ p["w_uv"]).reshape(B, S, H, hd)
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, rd)], dim=-1)
     qh = q * (1.0 / math.sqrt(q.shape[-1]))
     s = torch.einsum("bqhd,bshd->bhqs", qh.float(), k.float())
-    s = torch.where(valid, s, _NEG_INF)
-    w = torch.softmax(s, dim=-1)
+    w, lse = _softmax(s, valid, axis)
     # float32 accumulation, then the activation dtype before w_o
-    return torch.einsum("bhqs,bshd->bqhd", w.to(v.dtype).float(), v.float()).to(q.dtype)
+    o = torch.einsum("bhqs,bshd->bqhd", w.to(v.dtype).float(), v.float())
+    if axis is not None:
+        o = _join(o[:, 0], lse[:, :, 0], mesh, axis)[:, None]
+    return o.to(q.dtype)
 
 
 def attention_decode(
@@ -371,22 +454,52 @@ def attention_decode(
     x: torch.Tensor,                 # [B, 1, d_model]
     cache: Dict[str, torch.Tensor],  # updated in place
     pos: int,                        # tokens already in the cache
+    *,
+    mesh=None,
+    specs: Optional[Dict[str, tuple]] = None,
+    cache_spec: Optional[Dict[str, tuple]] = None,
+    kv: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One new token per sequence: ``(attention output [B, 1, d_model], cache)``."""
+    """One new token per sequence: ``(attention output [B, 1, d_model], cache)``.
+
+    With a bound ``mesh``, ``p`` holds this rank's shards as ``specs`` says
+    and ``cache`` this rank's shard as ``cache_spec`` says (see the module's
+    doc); ``kv`` the rank's :func:`kv_columns`, as ``Model.decode_step``
+    takes them from its caches (without them, gathered here).
+    """
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    mla = cfg.attn_kind == "mla"
+    axis, parallel = None, False
+    if mesh is not None:
+        specs = specs or {}
+        spec = (cache_spec or {}).get("c_kv" if mla else "k", ())
+        axis = spec[1] if len(spec) > 1 else None
+        parallel = head_parallel(cfg, specs, mesh)
+        if parallel:
+            cfg, p = _local_heads(cfg, p, specs, mesh, kv)
+            x = copy_in(x, mesh, "model")
+        else:
+            p = use_params(p, specs, mesh)
     q, k_new, v_new, extras = _project_qkv(cfg, p, x, positions)
-    if cfg.attn_kind == "mla":
+    if mla:
         c_kv_new, k_pe_new = extras
-        _cache_write(cache["c_kv"], c_kv_new[:, 0], pos)
-        _cache_write(cache["k_pe"], k_pe_new[:, 0], pos)
-        o = _mla_decode(cfg, p, q, cache, pos)
+        slot, length = _slot_and_length(cache["c_kv"], pos, mesh, axis)
+        _cache_write(cache["c_kv"], c_kv_new[:, 0], slot)
+        _cache_write(cache["k_pe"], k_pe_new[:, 0], slot)
+        o = _mla_decode(cfg, p, q, cache, length, mesh, axis)
         return o.reshape(B, 1, -1) @ p["w_o"], cache
-    _cache_write(cache["k"], k_new[:, 0], pos)
-    _cache_write(cache["v"], v_new[:, 0], pos)
+    slot, length = _slot_and_length(cache["k"], pos, mesh, axis)
+    _cache_write(cache["k"], k_new[:, 0], slot)
+    _cache_write(cache["v"], v_new[:, 0], slot)
     # The valid slots are always a prefix: on a global layer slots 0..pos; on a
     # local layer's ring buffer slots 0..pos until it fills, then all of them.
     # Softmax does not depend on slot order, so the ring needs no unrolling.
-    length = min(pos + 1, cache["k"].shape[1])
-    o = ops.decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"], length)
-    return o.reshape(B, 1, -1) @ p["w_o"], cache
+    q0 = q[:, 0].contiguous()
+    if axis is None:
+        o = ops.decode_attention(q0, cache["k"], cache["v"], length)
+    else:
+        o = _join(*ops.decode_attention_partial(q0, cache["k"], cache["v"], length),
+                  mesh, axis).to(q.dtype)
+    out = o.reshape(B, 1, -1) @ p["w_o"]
+    return (reduce_out(out, mesh, "model") if parallel else out), cache

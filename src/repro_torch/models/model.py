@@ -29,10 +29,22 @@ vocab-parallel cross-entropy whose [B, S] statistics are summed over
 batch's on every rank: each rank's gradients are its rows' part, for the
 train step to sum over the batch axes.  Mamba2, xLSTM and MLA blocks (and
 attention whose heads ``model`` does not divide) run whole on every rank
-from gathered weights (:meth:`Model.unpartitioned` lists them).  ``prefill``
-runs under a mesh too (this rank's rows; the last token's logits gathered
-over ``model``; the caches this rank's shards); ``decode_step`` takes an
-unsharded model.
+from gathered weights (:meth:`Model.unpartitioned` lists them).
+
+Serving runs under a mesh too.  A batch's rows are cut over the batch axes
+where they divide it, else every rank holds every row
+(``distributed.sharding.rows_spec``); :meth:`Model.cache_specs` places each
+cache tensor (``cache_leaf_spec``: rows, KV heads over ``model`` under
+head-parallel attention, MLA latents' slots over ``model``, and the slots
+over ``data`` where the rows are not cut).  :meth:`Model.init_caches`,
+:meth:`Model.abstract_caches` and ``prefill`` give this rank's shards as a
+:class:`Caches` list that carries those specs and the ``w_k`` / ``w_v``
+columns its head-parallel attention reads (``attention.kv_columns``,
+gathered once for the batch), and ``decode_step`` reads them: each block decodes with its norms through ``_Block.norm``, its
+attention head-parallel and, over a cut cache, sequence-parallel
+(``models/attention.py``), its MLP and MoE as in ``forward`` (the MoE's
+expert-parallel gather path at decode), and the logits gathered over
+``model`` where the head is vocab-parallel.
 
 :meth:`Model.abstract` builds the model on the ``meta`` device: parameters
 with their shapes and dtypes and no data, the counterpart of the reference's
@@ -54,9 +66,10 @@ from torch import nn
 from ..device import resolve_device
 from ..distributed.collectives import copy_in, raw_all_gather, raw_all_reduce, reduce_out
 from ..distributed.remat import POLICIES, maybe_remat
-from ..distributed.sharding import shard_tensor, use_full, use_params
+from ..distributed.sharding import (CACHE_DEVIATIONS, cache_leaf_spec, param_shardings,
+                                   shard_params, shard_tensor, use_full, use_params)
 from .attention import (attention_apply, attention_decode, attention_specs, head_parallel,
-                        init_kv_cache)
+                        init_kv_cache, kv_columns, kv_heads_read)
 from .common import ModelConfig, ParamSpec, count_params, fill_, rms_norm
 from .mlp import col_parallel, mlp_apply, mlp_specs
 from .moe import moe_apply, moe_specs
@@ -66,7 +79,8 @@ from .xlstm import (init_mlstm_state, init_slstm_state, mlstm_apply, mlstm_decod
                     slstm_apply, slstm_decode, slstm_specs)
 
 __all__ = ["Stage", "build_plan", "layer_blocks", "DenseBlock", "MoEBlock", "MambaBlock",
-           "XLSTMBlock", "Model", "param_specs", "init_caches", "decode_launches"]
+           "XLSTMBlock", "Model", "Caches", "param_specs", "init_caches", "cache_specs",
+           "decode_launches"]
 
 AUX_KEYS = ("moe_load_balance", "moe_z", "moe_dropped")
 
@@ -185,14 +199,67 @@ def decode_launches(cfg: ModelConfig) -> Dict[str, int]:
     return {"rmsnorm": rms, "decode_attention": att}
 
 
+_STATES = {"mamba": init_ssm_state, "xlstm_m": init_mlstm_state, "xlstm_s": init_slstm_state}
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device: torch.device) -> List:
     """One cache an entry of :func:`layer_blocks`: a KV cache (or MLA latents)
     in the param dtype for an attention block, the float32 recurrent state for
     a Mamba or xLSTM block.  ``device="meta"`` gives the shapes alone."""
-    states = {"mamba": init_ssm_state, "xlstm_m": init_mlstm_state, "xlstm_s": init_slstm_state}
     return [init_kv_cache(cfg, batch, max_len, li, device) if block in ("dense", "moe")
-            else states[block](cfg, batch, device)
+            else _STATES[block](cfg, batch, device)
             for li, (block, _) in enumerate(layer_blocks(cfg))]
+
+
+class Caches(list):
+    """A model's caches, one entry of :func:`layer_blocks` each (``{name:
+    tensor}``), with ``specs``: the placement of each entry's tensors on the
+    model's mesh as :func:`cache_specs` gives it, and ``kv``: each entry's
+    :func:`~.attention.kv_columns`, taken once for the batch (both None
+    without a mesh)."""
+
+    def __init__(self, entries=(), specs: Optional[List[Dict[str, tuple]]] = None,
+                 kv: Optional[List[Optional[Dict[str, torch.Tensor]]]] = None):
+        super().__init__(entries)
+        self.specs = specs
+        self.kv = kv
+
+
+def _cache_role(cfg: ModelConfig, block: str) -> str:
+    if block not in ("dense", "moe"):
+        return "state"
+    return "latent" if cfg.attn_kind == "mla" else "kv"
+
+
+def _attn_head_parallel(cfg: ModelConfig, mesh, shardings: Dict[str, tuple]) -> bool:
+    """Whether the attention blocks (all alike) compute their own query heads."""
+    attn = {k.rsplit(".", 1)[1]: _effective(v, mesh) for k, v in shardings.items()
+            if ".attn." in k}
+    return head_parallel(cfg, attn, mesh)
+
+
+def cache_specs(cfg: ModelConfig, mesh, batch: int, max_len: int,
+                shardings: Optional[Dict[str, tuple]] = None
+                ) -> Tuple[List[Dict[str, tuple]], List[str]]:
+    """``(specs, deviations)``: each cache tensor's spec on ``mesh`` for a
+    batch of ``batch`` rows and ``max_len`` slots (``cache_leaf_spec``; the
+    attention's parameter specs, ``shardings`` or the default rules', say
+    whether it is head-parallel), and each deviation from the reference's
+    placement once, named (``CACHE_DEVIATIONS``)."""
+    if shardings is None:
+        shardings, _ = param_shardings(param_specs(cfg), mesh)
+    parallel = _attn_head_parallel(cfg, mesh, shardings)
+    specs, log = [], {}
+    for (block, _), entry in zip(layer_blocks(cfg),
+                                 init_caches(cfg, batch, max_len, torch.device("meta"))):
+        role = _cache_role(cfg, block)
+        specs.append({})
+        for name, t in entry.items():
+            spec, devs = cache_leaf_spec(t.shape, mesh, batch, role, head_parallel=parallel)
+            specs[-1][name] = spec
+            log.update({(name, d): f"cache {name} ({role}) [{d}]: {CACHE_DEVIATIONS[d]}"
+                        for d in devs})
+    return specs, list(log.values())
 
 
 def _param(spec: ParamSpec, device: torch.device) -> nn.Parameter:
@@ -280,12 +347,13 @@ class DenseBlock(_Block):
         out = [] if head_parallel(self.cfg, self.sub_specs("attn"), self.mesh) else ["attn"]
         return out + ([] if col_parallel(self.sub_specs("mlp")) else ["mlp"])
 
-    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int):
-        cfg = self.cfg
-        a, cache = attention_decode(cfg, self.attn, rms_norm(x, self.ln1, cfg.norm_eps),
-                                    cache, pos)
+    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int,
+               cache_spec: Optional[Dict[str, tuple]] = None, kv=None):
+        a, cache = attention_decode(self.cfg, self.attn, self.norm("ln1", x), cache, pos,
+                                    mesh=self.mesh, specs=self.sub_specs("attn"),
+                                    cache_spec=cache_spec, kv=kv)
         x = x + a
-        y, _ = self.ffn(rms_norm(x, self.ln2, cfg.norm_eps), aux=False)
+        y, _ = self.ffn(self.norm("ln2", x), aux=False)
         return x + y, cache
 
 
@@ -307,7 +375,7 @@ class MoEBlock(DenseBlock):
             specs, want = self.sub_specs("moe"), ep_specs(self.cfg, mesh)
             p = {k: v if want.get(k) else use_full(v, specs[k], mesh)
                  for k, v in self.moe.items()}
-            y, losses = moe_apply_ep(self.cfg, p, h, mesh)
+            y, losses = moe_apply_ep(self.cfg, p, h, mesh, aux=aux)
             self.routing = None
         else:
             y, losses, self.routing = moe_apply(
@@ -341,9 +409,9 @@ class MambaBlock(_Block):
     def unpartitioned(self) -> List[str]:
         return ["mamba"]
 
-    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int):
-        y, cache = mamba_decode(self.cfg, self.mamba, rms_norm(x, self.ln1, self.cfg.norm_eps),
-                                cache)
+    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int,
+               cache_spec: Optional[Dict[str, tuple]] = None, kv=None):
+        y, cache = mamba_decode(self.cfg, self.part("mamba"), self.norm("ln1", x), cache)
         return x + y, cache
 
 
@@ -363,9 +431,10 @@ class XLSTMBlock(_Block):
     def unpartitioned(self) -> List[str]:
         return ["cell"]
 
-    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int):
+    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int,
+               cache_spec: Optional[Dict[str, tuple]] = None, kv=None):
         decode = _XLSTM[self.kind][1]
-        y, cache = decode(self.cfg, self.cell, rms_norm(x, self.ln1, self.cfg.norm_eps), cache)
+        y, cache = decode(self.cfg, self.part("cell"), self.norm("ln1", x), cache)
         return x + y, cache
 
 
@@ -395,15 +464,29 @@ class Model(nn.Module):
     The constructor allocates zeroed parameters; :meth:`init` draws them from
     a seeded ``torch.Generator`` and ``load_state_dict`` loads given ones
     (``models.convert.params_from_jax`` carries the reference's across).
+    Given a bound ``mesh``, it allocates only this rank's shards, bound as
+    ``distributed.sharding.shard_params`` binds them: no rank holds a whole
+    parameter it does not compute with.
     ``blocks`` holds the blocks with parameters of their own, ``shared`` the
     shared block where the plan has one; ``entries`` lists the block applied
     at each entry of :func:`layer_blocks`, the shared one as often as it is
     applied.
     """
 
-    def __init__(self, cfg: ModelConfig, device: str | torch.device | None = None):
+    def __init__(self, cfg: ModelConfig, device: str | torch.device | None = None, *,
+                 mesh=None):
         super().__init__()
-        self._build(cfg, resolve_device(device))
+        device = resolve_device(device)
+        if mesh is None:
+            self._build(cfg, device)
+            return
+        self._build(cfg, torch.device("meta"))  # shapes alone, then this rank's shards
+        shard_params(self, mesh)
+        self.to_empty(device=device)
+        with torch.no_grad():
+            for p in self.parameters():
+                p.zero_()
+        self.device = device
 
     @classmethod
     def abstract(cls, cfg: ModelConfig) -> "Model":
@@ -634,52 +717,121 @@ class Model(nn.Module):
 
     # -- serving ----------------------------------------------------------------
 
-    def _unsharded(self) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError("serving takes an unsharded model; this one is bound "
-                                      "to a mesh")
+    def cache_specs(self, batch: int, max_len: int) -> Optional[List[Dict[str, tuple]]]:
+        """Each cache tensor's spec on the model's mesh (:func:`cache_specs`);
+        None without a mesh."""
+        if self.mesh is None:
+            return None
+        return cache_specs(self.cfg, self.mesh, batch, max_len, self.shardings)[0]
 
-    def init_caches(self, batch: int, max_len: int):
-        """Zeroed caches on the model's device (:func:`init_caches`)."""
-        return init_caches(self.cfg, batch, max_len, self.device)
+    def init_caches(self, batch: int, max_len: int, device=None) -> "Caches":
+        """Zeroed caches on the model's device (``device``: another, such as
+        ``meta``) for a batch of ``batch`` rows and ``max_len`` slots
+        (:func:`init_caches`); under a mesh this rank's shards, placed as
+        :meth:`cache_specs` says, with the rank's w_k / w_v columns its
+        decode reads (:class:`Caches`), gathered here once for the batch."""
+        cfg = self.cfg
+        device = self.device if device is None else torch.device(device)
+        specs = self.cache_specs(batch, max_len)
+        if specs is None:
+            return Caches(init_caches(cfg, batch, max_len, device))
+        read = None  # the KV heads a rank holds where it holds those it reads
+        if _attn_head_parallel(cfg, self.mesh, self.shardings):
+            read = kv_heads_read(cfg, self.mesh).numel()
+        out = []
+        whole = init_caches(cfg, batch, max_len, torch.device("meta"))
+        for (block, _), entry, spec in zip(layer_blocks(cfg), whole, specs):
+            shapes = {name: list(shard_tensor(t, spec[name], self.mesh).shape)
+                      for name, t in entry.items()}
+            role = _cache_role(cfg, block)
+            if role == "state":  # its rows, as the block's own init makes them
+                out.append(_STATES[block](cfg, next(iter(shapes.values()))[0], device))
+                continue
+            for name, shape in shapes.items():
+                if role == "kv" and read is not None and len(spec[name]) < 3:
+                    shape[2] = read
+            out.append({name: torch.zeros(shape, dtype=entry[name].dtype, device=device)
+                        for name, shape in shapes.items()})
+        return Caches(out, specs, self._kv_columns())
+
+    @torch.no_grad()
+    def _kv_columns(self) -> List[Optional[Dict[str, torch.Tensor]]]:
+        """Each entry's :func:`~.attention.kv_columns` on the model's mesh
+        (a shared block's taken once)."""
+        taken = {}
+        for block in self.entries:
+            if isinstance(block, DenseBlock) and id(block) not in taken:
+                taken[id(block)] = kv_columns(self.cfg, block.attn, block.sub_specs("attn"),
+                                              self.mesh)
+        return [taken.get(id(block)) for block in self.entries]
+
+    def abstract_caches(self, batch: int, max_len: int) -> "Caches":
+        """:meth:`init_caches` on the ``meta`` device: shapes and dtypes, no
+        data (the reference's ``abstract_caches``)."""
+        return self.init_caches(batch, max_len, "meta")
 
     @torch.no_grad()
     def prefill(self, tokens: Optional[torch.Tensor] = None, *,
-                embeds: Optional[torch.Tensor] = None):
+                embeds: Optional[torch.Tensor] = None, batch: Optional[int] = None,
+                max_len: Optional[int] = None):
         """Process a whole prompt: ``(last-token logits [B, V], caches)``.
 
         The caches are the reference's: ``S`` slots on global layers (and MLA
         latents), a ring of ``min(window, S)`` slots on local ones, and each
-        recurrent block's state after the last token.  Under a mesh the
-        tokens are this rank's rows, the logits the whole vocabulary's
-        (gathered over ``model`` where the head is cut over it) and the caches
-        this rank's shards (its KV heads where attention is head-parallel).
+        recurrent block's state after the last token.  ``max_len`` (at least
+        S) sizes them as :meth:`init_caches` does instead, the prompt in their
+        first slots, so that ``decode_step`` goes on to ``max_len`` tokens
+        (at S slots, a decode at pos S overwrites slot 0).  Under a mesh the
+        tokens are this rank's rows of a batch of ``batch`` rows (default:
+        the rows given times the batch axes' ranks; where those axes do not
+        divide ``batch``, every row), the logits the whole vocabulary's
+        (gathered over ``model`` where the head is cut over it) and the
+        caches this rank's shards, placed as :meth:`cache_specs` says.
         """
         x, _, kvs = self._layers(self._embed(tokens, embeds))
-        S = x.shape[1]
-        caches = [self._prefill_cache(kv, li, S) if isinstance(block, DenseBlock) else kv
+        B, S = x.shape[:2]
+        L = S if max_len is None else max_len
+        if L < S:
+            raise ValueError(f"max_len {L} is shorter than the prompt's {S} tokens")
+        caches = [self._prefill_cache(kv, li, S, L) if isinstance(block, DenseBlock) else kv
                   for li, (block, kv) in enumerate(zip(self.entries, kvs))]
         logits = self._head(x[:, -1:, :])[:, 0, :]
+        if self.mesh is None:
+            return logits, Caches(caches)
         if self._vocab_slice() is not None:
             logits = raw_all_gather(logits, self.mesh, "model", dim=-1)
-        return logits, caches
+        if batch is None:
+            batch = B * self.mesh.axis_size(self.mesh.batch_axes)
+        specs = self.cache_specs(batch, L)
+        for entry, spec in zip(caches, specs):  # the rows and heads are the rank's already
+            for name, t in entry.items():
+                cut = spec[name][1] if len(spec[name]) > 1 else None
+                if cut is not None:
+                    entry[name] = shard_tensor(t, (None, cut), self.mesh).clone()
+        return logits, Caches(caches, specs, self._kv_columns())
 
-    def _prefill_cache(self, kv, layer_idx: int, S: int) -> Dict[str, torch.Tensor]:
+    def _prefill_cache(self, kv, layer_idx: int, S: int, L: int) -> Dict[str, torch.Tensor]:
+        """One attention layer's cache of ``L`` slots (a ring of ``min(window,
+        L)`` on a local layer) holding the prompt's ``S`` tokens."""
         cfg = self.cfg
+
+        def padded(t):  # the prompt in the first S of L slots
+            return t if L == S else F.pad(t, (0, 0) * (t.dim() - 2) + (0, L - S))
+
         if cfg.attn_kind == "mla":
             c_kv, k_pe = kv
-            return {"c_kv": c_kv, "k_pe": k_pe}
+            return {"c_kv": padded(c_kv), "k_pe": padded(k_pe)}
         k, v = kv
         if cfg.attn_kind == "sliding" and not cfg.is_global_attn(layer_idx):
-            # the last w tokens, each at its ring slot pos % window
-            w = min(cfg.sliding_window, S)
-            idx = torch.arange(S - w, S, device=k.device) % cfg.sliding_window
-            kc = torch.zeros((k.shape[0], w, *k.shape[2:]), dtype=k.dtype, device=k.device)
+            # the last w tokens, each at its ring slot pos % ring
+            w, ring = min(cfg.sliding_window, S), min(cfg.sliding_window, L)
+            idx = torch.arange(S - w, S, device=k.device) % ring
+            kc = torch.zeros((k.shape[0], ring, *k.shape[2:]), dtype=k.dtype, device=k.device)
             vc = torch.zeros_like(kc)
             kc[:, idx] = k[:, S - w:]
             vc[:, idx] = v[:, S - w:]
             return {"k": kc, "v": vc}
-        return {"k": k, "v": v}
+        return {"k": padded(k), "v": padded(v)}
 
     @torch.no_grad()
     def decode_step(
@@ -691,11 +843,22 @@ class Model(nn.Module):
         tokens: int[B] (or None with ``embeds [B, 1, d_model]``); pos: tokens
         already in the cache.  The caches are written in place (a KV slot, a
         recurrent state's entries).  Returns
-        (logits [B, V] float32, caches).
+        (logits [B, V] float32, caches).  Under a mesh the tokens are this
+        rank's rows and the caches its shards, as :meth:`init_caches` or
+        :meth:`prefill` gave them; the logits are its rows' over the whole
+        vocabulary.
         """
-        self._unsharded()
+        specs, kv = getattr(caches, "specs", None), getattr(caches, "kv", None)
+        if self.mesh is not None and (specs is None or kv is None):
+            raise ValueError("a model bound to a mesh decodes caches placed on it, with the "
+                             "K/V columns they carry: take them from its init_caches, "
+                             "abstract_caches or prefill")
         tokens = None if tokens is None else torch.as_tensor(tokens, device=self.device)[:, None]
         x = self._embed(tokens, embeds)
-        for block, cache in zip(self.entries, caches):
-            x, _ = block.decode(x, cache, pos)
-        return self._head(x)[:, 0, :], caches
+        for i, (block, cache) in enumerate(zip(self.entries, caches)):
+            x, _ = block.decode(x, cache, pos, None if specs is None else specs[i],
+                                None if kv is None else kv[i])
+        logits = self._head(x)[:, 0, :]
+        if self._vocab_slice() is not None:
+            logits = raw_all_gather(logits, self.mesh, "model", dim=-1)
+        return logits, caches

@@ -110,6 +110,13 @@ def grouped_ffn(cfg: ModelConfig, p, xs: torch.Tensor, offsets: torch.Tensor):
     gradient."""
     if xs.device.type == "cpu":
         return grouped_ffn_ref(cfg, p, xs, offsets)
+    if xs.is_meta and xs.dtype != torch.bfloat16:
+        # the meta function of _grouped_mm takes bf16 only (the card's kernel
+        # takes float32 too): a float32 trace gets its shapes and products from
+        # bf16 stand-ins, and its bytes count the casts (the dry run marks such
+        # a record's bytes approximate: launch.dryrun.MOE_STANDIN_BYTES)
+        w = {k: p[k].to(torch.bfloat16) for k in ("w_gate", "w_up", "w_down")}
+        return grouped_ffn(cfg, w, xs.to(torch.bfloat16), offsets).to(xs.dtype)
     act = activation(cfg)
     g = torch._grouped_mm(xs, p["w_gate"], offs=offsets)
     u = torch._grouped_mm(xs, p["w_up"], offs=offsets)

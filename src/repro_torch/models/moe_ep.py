@@ -112,7 +112,7 @@ def _combine(y: torch.Tensor, w: torch.Tensor, T: int, k: int) -> torch.Tensor:
     return (y.float() * w[:, None]).reshape(T, k, -1).sum(dim=1)
 
 
-def _scatter(cfg: ModelConfig, p, x: torch.Tensor, mesh, batch_axes, ff_axis):
+def _scatter(cfg: ModelConfig, p, x: torch.Tensor, mesh, batch_axes, ff_axis, aux):
     B_loc, S, d = x.shape
     if ff_axis:  # FSDP-style gather of the ff-sharded expert weights
         p = dict(p)
@@ -127,7 +127,7 @@ def _scatter(cfg: ModelConfig, p, x: torch.Tensor, mesh, batch_axes, ff_axis):
     Tm = T // msz
     xm = split(x.reshape(T, d), mesh, "model", 0)
 
-    idx, weights, losses = route(cfg, p, xm, reduce=lambda t: reduce_out(
+    idx, weights, losses = route(cfg, p, xm, aux, reduce=lambda t: reduce_out(
         t, mesh, ("model", *batch_axes)))
     flat_e = idx.reshape(-1)                    # [Tm*k] global expert ids
     pair_tok = torch.arange(Tm * k, device=x.device) // k
@@ -165,7 +165,7 @@ def _scatter(cfg: ModelConfig, p, x: torch.Tensor, mesh, batch_axes, ff_axis):
     return y_full.reshape(B_loc, S, d), losses, dropped
 
 
-def _gather(cfg: ModelConfig, p, x: torch.Tensor, mesh, batch_axes, ff_axis):
+def _gather(cfg: ModelConfig, p, x: torch.Tensor, mesh, batch_axes, ff_axis, aux):
     B_loc, S, d = x.shape
     msz, midx = mesh.shape["model"], mesh.index("model")
     E_loc = cfg.n_experts // msz
@@ -174,7 +174,7 @@ def _gather(cfg: ModelConfig, p, x: torch.Tensor, mesh, batch_axes, ff_axis):
     x_loc = x.reshape(T_loc, d)
     # routing is per token: route this rank's own tokens (the same on every
     # model rank), then gather the decisions with the tokens
-    idx, weights, losses = route(cfg, p, x_loc, reduce=lambda t: reduce_out(
+    idx, weights, losses = route(cfg, p, x_loc, aux, reduce=lambda t: reduce_out(
         t, mesh, batch_axes))
     x2 = x_loc
     if ff_axis:  # few tokens at decode: gather them across the ff-sharding axis
@@ -200,10 +200,12 @@ def _gather(cfg: ModelConfig, p, x: torch.Tensor, mesh, batch_axes, ff_axis):
     return y2.reshape(B_loc, S, d), losses, torch.zeros(1, device=x.device)
 
 
-def moe_apply_ep(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor, mesh
-                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def moe_apply_ep(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor, mesh, *,
+                 aux: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Expert-parallel MoE layer on this rank's rows ``x [B_loc, S, d]``:
-    ``(y [B_loc, S, d], {"moe_load_balance", "moe_z", "moe_dropped"})``."""
+    ``(y [B_loc, S, d], {"moe_load_balance", "moe_z", "moe_dropped"})``; with
+    ``aux=False`` (the decode step, which drops them) no losses, no drop
+    count and none of their exchanges: ``(y, {})``."""
     msz = mesh.shape["model"]
     B_loc, S, _ = x.shape
     batch_axes = mesh.batch_axes
@@ -211,7 +213,9 @@ def moe_apply_ep(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor, 
     use_scatter = T_loc % msz == 0 and (T_loc // msz) >= 8
     body = _scatter if use_scatter else _gather
     p_used = {key: p[key] for key in ep_specs(cfg, mesh)}
-    y, losses, dropped = body(cfg, p_used, x, mesh, batch_axes, _ff_axis(cfg, mesh))
+    y, losses, dropped = body(cfg, p_used, x, mesh, batch_axes, _ff_axis(cfg, mesh), aux)
+    if not aux:
+        return y, {}
     axes = ("model", *batch_axes)
     dropped = raw_all_reduce(dropped, mesh, axes)[0] / mesh.axis_size(axes)
     return y, {**losses, "moe_dropped": dropped}

@@ -22,8 +22,9 @@ import torch
 
 from repro_torch.configs import REGISTRY, get_config, reduced
 from repro_torch.kernels import ref
-from repro_torch.kernels.decode_attention import (DecodeAttentionPlan, decode_attention_cuda,
-                                                  decode_attention_plan)
+from repro_torch.kernels.decode_attention import (
+    DecodeAttentionPlan, combine_partials, decode_attention_cuda, decode_attention_partial_cuda,
+    decode_attention_partial_ref, decode_attention_plan)
 from repro_torch.kernels.gemv import GemvPlan, gemv_cuda, gemv_plan
 from repro_torch.kernels.gemv_tiles import gemv_tiles_cuda, remote_first_order, tile_plan
 from repro_torch.kernels.rmsnorm import (RMSNormBwdPlan, rmsnorm_bwd_cuda, rmsnorm_bwd_ref,
@@ -95,6 +96,46 @@ def test_decode_attention_kernel_matches_plain(cuda, B, H, KV, D, S, length, dty
     torch.testing.assert_close(
         o.float(), ref.decode_attention_ref(q.float(), k.float(), v.float(), length),
         **TOL[dtype])
+
+
+@pytest.mark.parametrize("H,KV,D", [(4, 1, 256), (16, 16, 128)], ids=["gemma3-1b", "olmoe"])
+@pytest.mark.parametrize("R,length", [(2, 544), (2, 200), (4, 544), (4, 300)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_decode_attention_partial_kernel_over_slices_of_s(cuda, H, KV, D, R, length, dtype):
+    """S 544 cut into R slices, the valid prefix ``length`` (a slice past it
+    has length 0): each slice's (o, lse) against the plain partial from the
+    same values in float32, and the slices combined against the whole
+    attention; one launch a slice, the empty one included.  The output is
+    float32, accumulated in float32 from either input dtype, so both are held
+    at the float32 tolerance, which rejects the output rounded to bf16."""
+    dt, B, S = DTYPES[dtype], 4, 544
+    q = _randn((B, H, D), dt, cuda, 2)
+    k = _randn((B, S, KV, D), dt, cuda, 3)
+    v = _randn((B, S, KV, D), dt, cuda, 4)
+    L = S // R
+    before = (decode_attention_cuda.launches, decode_attention_partial_cuda.launches)
+    parts, lengths = [], []
+    for r in range(R):
+        ks, vs = k[:, r * L:(r + 1) * L].contiguous(), v[:, r * L:(r + 1) * L].contiguous()
+        n = min(max(length - r * L, 0), L)
+        o, lse = decode_attention_partial_cuda(q, ks, vs, n)
+        o_ref, lse_ref = decode_attention_partial_ref(q.float(), ks.float(), vs.float(), n)
+        assert o.dtype == lse.dtype == torch.float32
+        torch.testing.assert_close(o, o_ref, **TOL["float32"])
+        if n:
+            assert not torch.allclose(o_ref.to(torch.bfloat16).float(), o_ref, **TOL["float32"])
+        torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+        if n == 0:
+            assert torch.equal(o, torch.zeros_like(o)) and (lse < -1e38).all()
+        parts.append((o, lse))
+        lengths.append(n)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches == before[0] + R
+    assert decode_attention_partial_cuda.launches == before[1] + R
+    assert 0 in lengths or length == S
+    got = combine_partials(torch.stack([o for o, _ in parts]), torch.stack([l for _, l in parts]))
+    torch.testing.assert_close(
+        got, ref.decode_attention_ref(q.float(), k.float(), v.float(), length), **TOL["float32"])
 
 
 def test_decode_attention_kernel_ignores_slots_beyond_length(cuda):

@@ -8,6 +8,15 @@ against the reference's Pallas kernel in interpret mode (``repro.kernels.ops``)
 with the reference's tolerances, 3e-5 in float32 and 3e-2 in bf16, with
 ragged last chunks.  The CUDA kernel itself is held against the plain version
 on the card, in tests/test_torch_cuda.py.
+
+The sequence-parallel decode cuts S over ranks: each slice's partial output
+and log-sum-exp (``decode_attention_partial_ref``), joined in rank order by
+``combine_partials``, equal the whole attention (``decode_attention_ref``)
+and the Pallas kernel within 3e-5 in float32, slices with no valid slot
+included; the plan takes such a slice (length 0, one split); and a combine
+that exponentiates before it subtracts the largest log-sum-exp, or takes
+that largest over empty slices' ``-inf``, gives NaN where
+``combine_partials`` does not, and the same check rejects it.
 """
 
 import jax.numpy as jnp
@@ -23,6 +32,8 @@ from repro_torch.kernels.decode_attention import (
     MIN_CHUNK,
     PLAN_CHUNK,
     DecodeAttentionPlan,
+    combine_partials,
+    decode_attention_partial_ref,
     decode_attention_plan,
     decode_attention_ref,
     decode_attention_split_ref,
@@ -142,3 +153,88 @@ def test_split_combine_ignores_slots_beyond_length():
     k[:, 100:], v[:, 100:] = 99.0, -99.0
     assert torch.equal(decode_attention_split_ref(q, k, v, 100, plan), o)
     torch.testing.assert_close(o, decode_attention_ref(q, k, v, 100), rtol=3e-5, atol=3e-5)
+
+
+def _slices(q, k, v, length, R):
+    """Each of R consecutive slices of S: its partial (o, lse) over the part
+    of the valid prefix it holds, and that part's length."""
+    L = k.shape[1] // R
+    parts = []
+    for r in range(R):
+        n = min(max(length - r * L, 0), L)
+        parts.append((*decode_attention_partial_ref(q, k[:, r * L:(r + 1) * L],
+                                                    v[:, r * L:(r + 1) * L], n), n))
+    return parts
+
+
+@pytest.mark.parametrize("B,H,KV,D,S,length", [
+    (4, 4, 1, 256, 544, 544), (4, 4, 1, 256, 544, 200), (4, 4, 1, 256, 544, 1),
+    (4, 16, 16, 128, 544, 300), (2, 8, 2, 64, 1024, 1017), (1, 4, 1, 16, 16, 5),
+])
+@pytest.mark.parametrize("R", [2, 4])
+def test_partial_slices_combined_equal_the_whole(B, H, KV, D, S, length, R):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(9, B, H, KV, D, S))
+    parts = _slices(q, k, v, length, R)
+    assert any(n == 0 for *_, n in parts) == (length <= (R - 1) * S // R)
+    for o, lse, n in parts:
+        assert o.dtype == lse.dtype == torch.float32 and lse.shape == (B, H)
+        if n == 0:
+            assert torch.equal(o, torch.zeros_like(o)) and (lse < -1e38).all()
+    got = combine_partials(torch.stack([o for o, _, _ in parts]),
+                           torch.stack([lse for _, lse, _ in parts]))
+    torch.testing.assert_close(got, decode_attention_ref(q, k, v, length), **TOL["float32"])
+    o_pallas = jops.decode_attention(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                                     jnp.int32(length), bs=S // R if (S // R) % 8 == 0 else S)
+    np.testing.assert_allclose(got.numpy(), np.asarray(o_pallas), **TOL["float32"])
+    # rank order: the same bits on every run
+    again = combine_partials(torch.stack([o for o, _, _ in parts]),
+                             torch.stack([lse for _, lse, _ in parts]))
+    assert torch.equal(again, got)
+
+
+def test_plan_and_check_take_a_slice_with_no_valid_slot():
+    plan = decode_attention_plan(4, 1, 4, 256, 2, 0, 132)
+    assert plan.splits == 1 and plan.chunk >= MIN_CHUNK
+    plan.check(0)
+    DecodeAttentionPlan(chunk=16, splits=1, block=16).check(0)
+    with pytest.raises(ValueError, match="does not cover"):
+        DecodeAttentionPlan(chunk=16, splits=2, block=16).check(0)
+    with pytest.raises(ValueError, match="does not cover"):
+        DecodeAttentionPlan(chunk=16, splits=1, block=16).check(-1)
+    with pytest.raises(ValueError, match="positive sizes"):
+        decode_attention_plan(4, 1, 4, 256, 2, -1, 132)
+
+
+def _exp_first(os, lses):
+    """A faulty control: e^lse before any subtraction (it overflows)."""
+    w = torch.exp(lses)
+    return (w[..., None] * os).sum(dim=0) / w.sum(dim=0)[..., None]
+
+
+def _max_over_every_slice(os, lses):
+    """A faulty control: M over every slice, an empty one's -inf included."""
+    w = torch.exp(lses - lses.amax(dim=0))
+    return (w[..., None] * os).sum(dim=0) / w.sum(dim=0)[..., None]
+
+
+def test_combine_rejects_a_nan_producing_order():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(10, 2, 4, 1, 64, 64))
+    q = q * 64.0  # scores above 88: e^lse overflows float32
+    parts = _slices(q, k, v, 40, 4)
+    os = torch.stack([o for o, _, _ in parts])
+    lses = torch.stack([lse for _, lse, _ in parts])
+    want = decode_attention_ref(q, k, v, 40)
+    assert lses.max() > 100
+    torch.testing.assert_close(combine_partials(os, lses), want, **TOL["float32"])
+    bad = _exp_first(os, lses)
+    assert torch.isnan(bad).any()
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(bad, want, **TOL["float32"])
+    # a row whose slices are all empty, their lse -inf: 0, not NaN
+    empty_os = torch.zeros(3, 2, 4, 64)
+    empty_lses = torch.full((3, 2, 4), -float("inf"))
+    assert torch.isnan(_max_over_every_slice(empty_os, empty_lses)).all()
+    assert torch.equal(combine_partials(empty_os, empty_lses), torch.zeros(2, 4, 64))
+    # -inf for the empty slice beside valid ones gives the same as -2e38
+    inf_lses = torch.where(lses < -1e38, -float("inf"), lses)
+    assert torch.equal(combine_partials(os, inf_lses), combine_partials(os, lses))

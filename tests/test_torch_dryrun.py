@@ -140,11 +140,8 @@ def test_cells_on_a_2x2_abstract_mesh(arch, shape):
     cfg = reduced(get_config(arch))
     opts = {"microbatches": 2} if shape == "train_4k" else {}
     rec = dryrun.run_cell(arch, shape, "2x2", opts, rank=3, cfg=cfg, verbose=False)
-    if shape == "decode_32k":
-        assert rec["status"] == "not_ported" and "slice 4d" in rec["skip_reason"]
-        return
-    if shape == "long_500k":
-        assert rec["status"] == ("not_ported" if cfg.supports_500k else "skipped")
+    if shape == "long_500k" and not cfg.supports_500k:
+        assert rec["status"] == "skipped"
         return
     assert rec["status"] == "ok", rec.get("traceback")
     assert rec["coord"] == {"data": 1, "model": 1} and rec["axes"] == {"data": 2, "model": 2}
@@ -156,6 +153,13 @@ def test_cells_on_a_2x2_abstract_mesh(arch, shape):
         mem = rec["memory"]
         # .grad in the param dtype, and float32 accumulators with microbatches
         assert mem["state_bytes"] > 0 and mem["grad_buffer_bytes"] > 2 * mem["param_bytes"]
+    elif SHAPES[shape].mode == "decode":
+        # one launch of each kernel a norm and a GQA block, as on the card;
+        # long_500k's one row is sequence-parallel over data (its partial entry)
+        assert rec["kernel_calls"] == decode_launches(cfg)
+        assert rec["memory"]["cache_bytes"] > 0
+        kinds = {"decode_32k": {"all-reduce"}, "long_500k": {"all-reduce", "all-gather"}}
+        assert kinds[shape] <= set(rec["collectives"])
     else:
         assert rec["kernel_calls"] == {"rmsnorm": norms}
     assert rec["hbm_bytes_per_device"] >= rec["memory"]["argument_bytes"] > 0
@@ -163,7 +167,8 @@ def test_cells_on_a_2x2_abstract_mesh(arch, shape):
     assert sum(v["bytes"] for v in rec["collectives"].values()) == \
         rec["collective_bytes_per_device"]
     factor = 6.0 if shape == "train_4k" else 2.0
-    assert rec["model_flops"] == factor * rec["n_active_params"] * SHAPES[shape].tokens
+    tokens = SHAPES[shape].global_batch if SHAPES[shape].mode == "decode" else SHAPES[shape].tokens
+    assert rec["model_flops"] == factor * rec["n_active_params"] * tokens
 
 
 @pytest.mark.parametrize("mesh", ["single", "multi"])
@@ -192,28 +197,69 @@ def test_cli_full_gemma3_1b_train_cell_and_its_trace(tmp_path, mesh):
 
 
 def test_cli_decode_cell_is_not_ported_and_refuses_foreign_options(tmp_path):
+    """The decode cell runs from the command line (it was not ported before
+    sharded serving); ``--attn-constraints`` stays refused, ``--no-master``
+    and ``--mla-absorbed`` run."""
     out = str(tmp_path)
     dryrun.main(["--arch", "gemma3-1b", "--shape", "decode_32k", "--mesh", "single",
                  "--out", out])
     with open(dryrun.cell_path(out, "gemma3-1b", "decode_32k", "single")) as f:
-        assert json.load(f)["status"] == "not_ported"
-    for flag in ("--attn-constraints", "--no-master"):
-        with pytest.raises(SystemExit) as e:
-            dryrun.main(["--arch", "gemma3-1b", "--shape", "train_4k", "--mesh", "2x2",
-                         "--out", out, flag])
-        assert e.value.code == 2
-    with pytest.raises(ValueError, match="float32 master"):
-        dryrun.run_cell("gemma3-1b", "train_4k", "2x2", {"no_master": True})
+        rec = json.load(f)
+    assert rec["status"] == "ok" and rec["kernel_calls"] == {"rmsnorm": 53, "decode_attention": 26}
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--arch", "gemma3-1b", "--shape", "train_4k", "--mesh", "2x2",
+                     "--out", out, "--attn-constraints"])
+    assert e.value.code == 2
+    with pytest.raises(ValueError, match="sharding constraints"):
+        dryrun.run_cell("gemma3-1b", "train_4k", "2x2", {"attn_constraints": True})
+    dryrun.main(["--arch", "minicpm3-4b", "--shape", "decode_32k", "--mesh", "2x2",
+                 "--out", out, "--mla-absorbed", "--tag", "absorbed"])
+    with open(dryrun.cell_path(out, "minicpm3-4b", "decode_32k", "2x2", "absorbed")) as f:
+        rec = json.load(f)
+    assert rec["status"] == "ok" and rec["options"] == {"mla_absorbed": True}
+
+
+def test_no_master_lowers_state_bytes_by_the_master():
+    """A train cell with ``--no-master``: the state bytes drop by the rank's
+    float32 master, 4 B a ZeRO-1 piece element (a third of the state: the
+    moments are float32 pieces too), and so do the argument bytes; the
+    schedule, the products, the kernel calls and the parameter and gradient
+    bytes stay as they were."""
+    cfg = reduced(get_config("gemma3-1b"))
+    shape = ShapeSpec("t", 32, 8, "train")
+    mesh = Mesh({"data": 2, "model": 2})
+    base = dryrun.trace_cell(cfg, shape, mesh, 1)
+    bare = dryrun.trace_cell(cfg, shape, mesh, 1, {"no_master": True})
+    master = base["bytes"]["state_bytes"] // 3
+    assert master > 0 and base["bytes"]["state_bytes"] == 3 * master
+    assert base["bytes"] == {**bare["bytes"], "state_bytes": bare["bytes"]["state_bytes"] + master}
+    assert base["cost"].argument_bytes - bare["cost"].argument_bytes == master
+    assert base["ops"] == bare["ops"] and base["cost"].dot_flops == bare["cost"].dot_flops
+    assert base["cost"].kernel_calls == bare["cost"].kernel_calls
+    rec = dryrun.run_cell("gemma3-1b", "train_4k", "2x2", {"no_master": True}, cfg=cfg,
+                          verbose=False)
+    assert rec["status"] == "ok" and rec["options"] == {"no_master": True}
 
 
 def test_abstract_model_has_no_data_and_decode_refuses_a_mesh():
-    model = Model.abstract(reduced(get_config("gemma3-1b")))
+    """The abstract model holds no data; bound to a mesh, its decode refuses
+    caches that are not placed on it, and decodes its abstract caches: the
+    rank's rows (B 4 over data), its KV heads (the one KV head, read by both
+    model ranks) and the whole vocabulary's logits."""
+    cfg = reduced(get_config("gemma3-1b"))
+    model = Model.abstract(cfg)
     assert {p.device.type for p in model.parameters()} == {"meta"}
     with pytest.raises(NotImplementedError):
         model.embed.tolist()
     shard_params(model, make_mesh_by_name("2x2").bind_abstract(0))
-    with pytest.raises(NotImplementedError, match="unsharded"):
-        model.decode_step([], torch.zeros(2, dtype=torch.int64, device="meta"), 0)
+    tokens = torch.zeros(2, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="placed on it"):
+        model.decode_step([], tokens, 0)
+    caches = model.abstract_caches(4, 24)
+    assert caches.specs[0] == {"k": ("data",), "v": ("data",)}
+    assert caches[0]["k"].shape == (2, 16, 1, cfg.hd) and caches[1]["k"].shape == (2, 24, 1, cfg.hd)
+    logits, _ = model.decode_step(caches, tokens, 23)
+    assert logits.shape == (2, cfg.vocab) and logits.device.type == "meta"
 
 
 def test_full_gemma3_1b_sharded_step_as_the_card_runs_it():
@@ -227,3 +273,42 @@ def test_full_gemma3_1b_sharded_step_as_the_card_runs_it():
     assert trace["bytes"] == {"param_bytes": 999_873_792, "grad_buffer_bytes": 2_999_621_376,
                               "state_bytes": 2_999_621_376}
     assert len(trace["ops"]) == 901
+
+
+@pytest.mark.parametrize("arch,dtype,marked", [
+    ("olmoe-1b-7b", torch.float32, True), ("olmoe-1b-7b", torch.bfloat16, False),
+    ("gemma3-1b", torch.float32, False),
+])
+def test_moe_trace_off_bf16_marks_its_bytes_approximate(arch, dtype, marked):
+    """A MoE cell traced in float32 takes its expert products on bf16
+    stand-ins, and its record says that its bytes are approximate; a bf16
+    MoE cell and a dense float32 one do not."""
+    cfg = reduced(get_config(arch)).with_(param_dtype=dtype)
+    trace = dryrun.trace_cell(cfg, ShapeSpec("d", 24, 4, "decode"), Mesh({"data": 2, "model": 2}))
+    line = dryrun.MOE_STANDIN_BYTES.format(dtype="float32")
+    assert (line in trace["fallbacks"]) == marked
+    assert not any(f.startswith("grouped_ffn") for f in trace["fallbacks"] if f != line)
+
+
+def test_decode_takes_the_kv_columns_once_a_batch():
+    """Head-parallel decode whose single KV head ``model`` does not divide
+    (reduced gemma3-1b on 2x2): the caches carry the rank's ``w_k`` /
+    ``w_v`` columns, taken when they are made, so a step gathers only the
+    logits; caches without them are refused."""
+    from repro_torch.core.capture import capture_collectives
+    from repro_torch.models.model import Caches
+
+    cfg = reduced(get_config("gemma3-1b"))
+    model = Model.abstract(cfg)
+    shard_params(model, make_mesh_by_name("2x2").bind_abstract(1))
+    with capture_collectives() as made:
+        caches = model.abstract_caches(4, 24)
+    assert [op.kind for op in made] == ["all-gather"] * 2 * cfg.n_layers
+    assert all(cols["w_k"].shape == (cfg.d_model, cfg.hd) for cols in caches.kv)
+    tokens = torch.zeros(2, dtype=torch.int64, device="meta")
+    with capture_collectives() as ops:
+        model.decode_step(caches, tokens, 23)
+    gathers = [op for op in ops if op.kind == "all-gather"]
+    assert len(gathers) == 1 and "over model" in gathers[0].line
+    with pytest.raises(ValueError, match="K/V columns"):
+        model.decode_step(Caches(caches, caches.specs), tokens, 23)

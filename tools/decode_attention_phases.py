@@ -46,7 +46,7 @@ MARKS = [
     ("  if (!last) return;\n", 7, True),
     ("  __syncthreads();\n  for (int o = tid; o < split_stride;", 8, True),
 ]
-END = "    og[o * 4 + 3] = from_f32<T>(sum.w / den);\n  }\n}"  # the kernel's last lines
+END = ("    if (lse != nullptr && o * 4 % D == 0) lse[r] = m_s[r] + logf(den);\n  }\n}")  # the kernel's last lines
 PHASES = {  # name: (from, to); times of the last block where a chunk has several
     "k_and_q_landed": (0, 1), "scores": (1, 2), "softmax_and_v_landed": (2, 3),
     "p_times_v": (3, 4), "slot_group_sums": (4, 5), "partials_out": (5, 6),
@@ -90,7 +90,7 @@ def build_instrumented() -> ctypes.CDLL:
                     str(out / "decode_attention.so"), str(out / "decode_attention.cu")],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out / "decode_attention.so"))
-    lib.decode_attention_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
+    lib.decode_attention_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.decode_attention_launch.restype = ctypes.c_int
     lib.decode_attention_blocks_per_sm.argtypes = [ctypes.c_int] * 7
