@@ -115,14 +115,47 @@ Phases, each printing one JSON line:
            slots are cut over data, sequence-parallel through the kernel's
            partial entry, the local layers' 512-slot rings wrapping at step
            9).  Each is first run on one rank in this process and freed.
-           Every rank: tokens exactly the one-rank run's, the first and last
-           steps' logits within 1e-4, rmsnorm and decode_attention launches
+           Every rank: tokens exactly the one-rank run's, every step's
+           logits within 1e-4, rmsnorm and decode_attention launches
            a step as decode_launches gives them (and the prefill's norms),
            and the executed schedule of its last decode step equal, op for
            op, to its abstract capture (trace_cell on meta tensors); ms a step
            (the gloo host exchange), the bytes handed to each collective a
            step (a prefill's apart), peak memory beside the rank's parameter
-           and cache bytes.
+           and cache bytes;
+  sharded_blocks  the Mamba2, mLSTM and MLA blocks computing their heads'
+           share on a (2, 2) mesh (4 ranks sharing the card, float32, seed-0
+           weights drawn whole and sliced), one line a case: zamba2-2.7b at
+           full width and depth 4 x (32 + 8) through ServeEngine (its Mamba2
+           blocks and shared block head-parallel, each state the rank's
+           heads'); minicpm3-4b at full width and depth 4 x (32 + 8) through
+           Model.prefill and 8 decode steps (MLA head-parallel, the latents'
+           slots cut over model); each first on one rank and on a float64
+           anchor (the one-rank model with float64 parameters and products
+           and the kernels' plain versions), then every rank's tokens exactly
+           the one-rank run's and each step's logits no further from the
+           anchor than twice the one-rank run's distance at that step + 1e-5
+           (the distance from the one-rank run printed beside), exact
+           launches and schedules as in sharded_serve; and xlstm-125m at full
+           width and depth trained 2 steps (B 4 x S 64, one microbatch, lr
+           1e-3 warming up over 2 steps; its mLSTM cells head-parallel, the
+           sLSTM cells whole) against the one-rank run and its anchor: losses
+           within 1e-3 and step 1's gradient norm within 1e-4 relative of the
+           one-rank run's; each step's gradient norm no further from the
+           anchor's than twice the one-rank run's relative distance + 1e-4;
+           after each step, in each leaf of each rank's parameter shards, no
+           more entries outside 1e-5 + 1e-5 |p| of the anchor's than twice the
+           one-rank run's on the same entries + 8, a leaf with its step-1
+           update undone (blocks.0.cell.w_if) failing that bound; 13 / 13
+           rmsnorm launches a step and rank.  Every rank's rmsnorm calls are
+           recorded and must be exactly the shapes the kernels phase held.
+           Each case prints its per-rank peak memory beside the same work's
+           with those blocks replicated over model (their specs without the
+           axis: whole on every rank, weights and compute; the engine's
+           caches and two steps, the prefill and a step, or one train step;
+           its first logits held to the anchor as above, its loss to the
+           one-rank run's), its launches a step and rank and its collectives
+           a step.
 The kernels phase also holds decode_attention's partial entry (a slice of S:
 float32 output and log-sum-exp) from bf16 and float32 inputs at olmoe's and
 gemma3-1b's head layouts over 2 and 4 slices of S 544, an empty slice among
@@ -133,13 +166,19 @@ float32 at the shapes and lengths sharded_serve's ranks give them, derived
 from its runs and mesh (the whole kernel on each rank's rows and heads, the
 partial entry on each data rank's slice of the 520-slot global caches and
 the 512-slot local rings, wrapped, at every decode position and at 0 and 1
-tokens), which that phase's ranks then show they met; and the partial's
-device time on half of S 544 beside the whole kernel's.
+tokens; and the whole kernel at zamba2-2.7b's shared block, 16 heads a
+rank over 40 slots, for sharded_blocks), which those phases' ranks then show
+they met; and the partial's device time on half of S 544 beside the whole
+kernel's.
 The kernels phase also holds the rmsnorm backward (the port's own kernel: the
 reference differentiates rms_norm through XLA) against its plain version at
 the training shapes, bits repeating over 5 calls and a bf16 dgamma
 accumulator rejected, beside the backward of F.rms_norm, and the forward at
-the gemma3-1b training shape [2048, 1152].
+the gemma3-1b training shape [2048, 1152]; and both in float32 at the shapes
+sharded_blocks gives them on one rank and on each rank of its meshes,
+derived from its runs and the configs (forward and backward against their
+plain versions, bits repeating, the plain version on bf16-rounded inputs and
+a bf16 dgamma accumulator rejected).
 Then a timing line (seconds from the start to the end of each phase), the
 kernel summary line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Any failure raises: the script exits non-zero
@@ -323,12 +362,36 @@ REMAT_LAUNCHES_PER_STEP = {p: {"rmsnorm": 106 if p == "none" else 210, "rmsnorm_
 # olmoe-1b-7b batched through the engine (the prompt a token a step), then
 # gemma3-1b's one request past its 512-slot window (sequence-parallel), its
 # prompt through one prefill (a step a token would take 504 steps of about
-# 130 exchanges through the host); the logits of the first and last steps
-# against the one-rank run's
+# 130 exchanges through the host); every step's logits against the one-rank
+# run's
 SERVE_MESH = {"data": 2, "model": 2}
 SHARDED_SERVE_RUNS = (("gemma3-1b", 4, 32, 8, "engine"), (MAIN_ARCH, 4, 32, 8, "engine"),
                       ("gemma3-1b", 1, 504, 16, "prefill"))
 SHARDED_SERVE_TOL = 1e-4
+# partitioned compute for the Mamba2, mLSTM and MLA blocks (slice 4e), float32,
+# 4 ranks on the card: zamba2-2.7b served through the engine (its Mamba2 blocks
+# and shared block head-parallel) and minicpm3-4b through one prefill (MLA
+# head-parallel; a token a step would take 32 steps of ~250 exchanges through
+# the host); xlstm-125m trained BLOCK_TRAIN_STEPS steps (its mLSTM cells
+# head-parallel, the sLSTM cells whole).  Each run is held at every step to a
+# float64 anchor (the one-rank model with float64 parameters and products):
+# no further from it than BLOCK_ANCHOR_FACTOR x the one-rank float32 run's own
+# distance at that step, plus BLOCK_SERVE_TOL for logits, the test's relative
+# 1e-4 for a gradient norm, BLOCK_LEAF_SLACK entries for a leaf's count of
+# entries outside 1e-5 + 1e-5 |p|; after step 1 the leaf BLOCK_PLANTED_LEAF
+# with its update undone must fail that bound.  Each case's peak beside the
+# same work with those blocks replicated over model (whole on every rank)
+BLOCK_SERVE_RUNS = (("zamba2-2.7b", 4, 32, 8, "engine"), ("minicpm3-4b", 4, 32, 8, "prefill"))
+BLOCK_SERVE_TOL = 1e-5
+BLOCK_ANCHOR_FACTOR = 2.0
+BLOCK_LEAF_SLACK = 8  # entries: a small leaf's few near-zero gradients that rounding flips
+BLOCK_PLANTED_LEAF = "blocks.0.cell.w_if"  # an mLSTM cell's gates, cut over model
+BLOCK_TRAIN = ("xlstm-125m", 4, 64)  # arch, batch, seq: one microbatch, rows over data
+BLOCK_TRAIN_STEPS = 2
+BLOCK_TRAIN_OPT = {"lr": 1e-3, "warmup_steps": 2, "total_steps": 6}
+BLOCK_TRAIN_TOL = {"loss": 1e-3, "grad_norm_rtol": 1e-4, "param_atol": 1e-5,
+                   "param_rtol": 1e-5}  # the test's float32 bounds
+BLOCK_TRAIN_DIR = Path("build") / "chip_smoke_blocks"
 # the partial entry at olmoe's and gemma3-1b's head layouts, S 544 cut in
 # PARTIAL_SLICES, the valid prefix PARTIAL_LENGTHS (200 leaves slices empty)
 PARTIAL_HEADS = {"olmoe": (16, 16, 128), "gemma3_1b": (4, 1, 256)}
@@ -939,6 +1002,71 @@ def _rmsnorm_bwd_checks(gen: torch.Generator) -> list:
     return out
 
 
+def _block_norm_cases(ranks_only: bool = False) -> set:
+    """The rmsnorm calls of the sharded_blocks phase, float32, derived from
+    BLOCK_SERVE_RUNS, BLOCK_TRAIN, their meshes and the configs: ``{(entry,
+    rows, D)}``, entry "forward" or "backward", on one rank and (alone with
+    ``ranks_only``) on each rank of the mesh.  A norm sees its block's tokens:
+    the rank's rows of the batch (cut over data where they divide), times the
+    prompt at a prefill, one at a decode step (the final norm of a prefill
+    sees the last token); D is d_model, and MLA's latent ranks (the latents
+    computed whole on every rank)."""
+    from repro_torch.configs import get_config
+
+    out = set()
+    for arch, B, P, n_new, how in BLOCK_SERVE_RUNS:
+        cfg = get_config(arch)
+        widths = {cfg.d_model}
+        if cfg.attn_kind == "mla":
+            widths.update(r for r in (cfg.mla_kv_rank, cfg.mla_q_rank) if r)
+        for d in (SERVE_MESH["data"],) if ranks_only else (1, SERVE_MESH["data"]):
+            rows = B // d if B % d == 0 else B
+            out.update(("forward", rows, w) for w in widths)
+            if how == "prefill":
+                out.update(("forward", rows * P, w) for w in widths)
+    arch, batch, seq = BLOCK_TRAIN
+    width = get_config(arch).d_model
+    for d in (SHARDED_MESH["data"],) if ranks_only else (1, SHARDED_MESH["data"]):
+        out.update((entry, batch // d * seq, width) for entry in ("forward", "backward"))
+    return out
+
+
+def _block_norm_checks(gen: torch.Generator) -> list:
+    """rmsnorm and its backward in float32 at the sharded_blocks phase's
+    shapes (:func:`_block_norm_cases`) against their plain versions at
+    F32_TOL, two calls giving the same bits; the plain version on the inputs
+    rounded to bf16 (forward) and a bf16 dgamma accumulator (backward) are
+    faulty controls the tolerance must reject."""
+    from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_cuda, rmsnorm_bwd_ref, rmsnorm_cuda,
+                                             rmsnorm_ref)
+
+    out = []
+    for entry, rows, d in sorted(_block_norm_cases()):
+        x = torch.randn(rows, d, generator=gen, device="cuda")
+        g = torch.randn(d, generator=gen, device="cuda") * 0.2
+        if entry == "forward":
+            got, want = (rmsnorm_cuda(x, g),), (rmsnorm_ref(x, g),)
+            again = (rmsnorm_cuda(x, g),)
+            control = rmsnorm_ref(x.bfloat16().float(), g.bfloat16().float())
+        else:
+            dy = torch.randn(rows, d, generator=gen, device="cuda")
+            got, want = rmsnorm_bwd_cuda(x, g, dy), rmsnorm_bwd_ref(x, g, dy)
+            again = rmsnorm_bwd_cuda(x, g, dy)
+            control = _dgamma_bf16_accumulator(x, g, dy)
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, **F32_TOL)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"rmsnorm {entry} [{rows}, {d}] float32: bits differ")
+        control_ratio = _worst_ratio(control, want[-1], F32_TOL)
+        if control_ratio <= 1.0:
+            raise AssertionError(f"rmsnorm {entry} [{rows}, {d}]: F32_TOL lets the faulty "
+                                 f"control pass (worst ratio {control_ratio})")
+        out.append({"entry": entry, "rows": rows, "D": d, "dtype": "float32",
+                    "worst_ratio": max(_worst_ratio(a, w, F32_TOL) for a, w in zip(got, want)),
+                    "control_worst_ratio": control_ratio})
+    return out
+
+
 def _rmsnorm_checks(gen: torch.Generator) -> list:
     """rmsnorm against its plain version at every width the port's norms
     take (each config's d_model, MLA's latent ranks), in bf16 and float32;
@@ -1115,9 +1243,11 @@ def _attention_partial_checks(gen: torch.Generator) -> dict:
             "max_slice_worst_ratio": max(c["slice_worst_ratio"] for c in checks)}
 
 
-def _serve_attention_cases() -> list:
-    """The decode_attention calls the sharded_serve phase's ranks make,
-    derived from SHARDED_SERVE_RUNS, SERVE_MESH and the configs: for each
+def _serve_attention_cases(runs: tuple = SHARDED_SERVE_RUNS + BLOCK_SERVE_RUNS) -> list:
+    """The decode_attention calls the ranks of the sharded_serve and
+    sharded_blocks phases make (``runs``: both phases' by default), derived
+    from their runs, SERVE_MESH and the configs (MLA attends in plain torch
+    and makes none): for each
     run, rank and attention layer, the entry ("whole" where the rows divide
     over data, else "partial" on the rank's slice of S), the shapes of q and
     of its K/V, the cache's slots S, the slices R it is cut in, and the
@@ -1131,9 +1261,11 @@ def _serve_attention_cases() -> list:
 
     mesh, d, m = Mesh(SERVE_MESH), SERVE_MESH["data"], SERVE_MESH["model"]
     cases = {}
-    for arch, B, P, n_new, how in SHARDED_SERVE_RUNS:
+    for arch, B, P, n_new, how in runs:
         cfg = get_config(arch)
-        if cfg.attn_kind == "mla" or cfg.n_heads % m:
+        if cfg.attn_kind == "mla":
+            continue
+        if cfg.n_heads % m:
             raise AssertionError(f"{arch}: the cases assume head-parallel GQA attention")
         rows_cut, L = B % d == 0, P + n_new
         Bl, Hl, D = (B // d if rows_cut else B), cfg.n_heads // m, cfg.hd
@@ -1385,6 +1517,7 @@ def phase_kernels() -> dict:
             "rmsnorm": _rmsnorm_at(gen, olmoe["d_model"]),
             "rmsnorm_by_width": {d: _rmsnorm_at(gen, d) for d in RMSNORM_WIDTHS},
             "rmsnorm_checks": _rmsnorm_checks(gen),
+            "rmsnorm_block_checks": _block_norm_checks(gen),
             "decode_attention": _attention_path(gen, olmoe["H"], olmoe["KV"], olmoe["D"],
                                                 PROMPT_LEN + NEW_TOKENS),
             "decode_attention_checks": checks, "decode_attention_controls": controls,
@@ -2768,8 +2901,8 @@ def phase_remat(card: str) -> dict:
 
 
 def _serve_recording(model, engine, prompts, n_new: int) -> dict:
-    """``engine.generate(prompts, n_new)`` with the logits of its first and
-    last decode steps and the collectives of its last step recorded."""
+    """``engine.generate(prompts, n_new)`` with the logits of each decode step
+    and the collectives of its last step recorded."""
     from repro_torch.core.capture import capture_collectives
 
     step, seen = model.decode_step, {"logits": [], "ops": None, "steps": 0}
@@ -2779,9 +2912,7 @@ def _serve_recording(model, engine, prompts, n_new: int) -> dict:
             out = step(*args, **kwargs)
         seen["steps"] += 1
         seen["ops"] = ops
-        if seen["steps"] == 1:
-            seen["logits"].append(out[0].float().cpu())
-        seen["last"] = out[0]
+        seen["logits"].append(out[0].float().cpu())
         return out
 
     model.decode_step = recording
@@ -2793,17 +2924,16 @@ def _serve_recording(model, engine, prompts, n_new: int) -> dict:
         wall = time.perf_counter() - t0
     finally:
         del model.decode_step  # the class's method again (no cycle holds the model)
-    seen["logits"].append(seen.pop("last").float().cpu())
     return {"outputs": outs, "wall_s": wall, **seen}
 
 
 def _prefill_and_decode(model, prompts, n_new: int) -> dict:
     """The prompts through ``Model.prefill`` into caches of prompt + n_new
     slots, then greedy decode steps: the same record as
-    :func:`_serve_recording` (the prefill's logits first, the last step's
-    last, the last step's collectives)."""
+    :func:`_serve_recording` (the prefill's logits first, then each step's;
+    the last step's collectives)."""
     from repro_torch.core.capture import capture_collectives
-    from repro_torch.distributed.collectives import EXCHANGED
+    from repro_torch.distributed.collectives import EXCHANGED, raw_all_gather
     from repro_torch.distributed.sharding import rows_spec, shard_tensor
 
     mesh, (B, P) = model.mesh, np.shape(prompts)
@@ -2813,7 +2943,7 @@ def _prefill_and_decode(model, prompts, n_new: int) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, caches = model.prefill(mine, batch=B, max_len=P + n_new)
-    first, new = logits.float().cpu(), []
+    kept, new = [logits.float().cpu()], []
     prefill_exchanged = dict(EXCHANGED)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -2822,16 +2952,21 @@ def _prefill_and_decode(model, prompts, n_new: int) -> dict:
         new.append(nxt)
         with capture_collectives() as ops:
             logits, caches = model.decode_step(caches, nxt, P + k)
+        kept.append(logits.float().cpu())
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    outs = [list(p) + seq for p, seq in zip(prompts, torch.stack(new, 1).cpu().tolist())]
-    return {"outputs": outs, "logits": [first, logits.float().cpu()], "ops": ops,
+    new = torch.stack(new, 1)
+    if rows is not None:  # every row's tokens, as the engine gathers them
+        new = raw_all_gather(new, mesh, rows, dim=0)
+    outs = [list(p) + seq for p, seq in zip(prompts, new.cpu().tolist())]
+    return {"outputs": outs, "logits": kept, "ops": ops,
             "steps": n_new, "wall_s": t2 - t1, "prefill_s": t1 - t0,
             "prefill_exchanged": prefill_exchanged}
 
 
 def _serve_run(model, B: int, P: int, n_new: int, how: str) -> dict:
-    """One run of SHARDED_SERVE_RUNS on ``model``, seed-0 prompts."""
+    """One run of SHARDED_SERVE_RUNS or BLOCK_SERVE_RUNS on ``model``, seed-0
+    prompts."""
     from repro_torch.serving import ServeConfig, ServeEngine
 
     prompts = np.random.default_rng(0).integers(1, model.cfg.vocab, (B, P)).tolist()
@@ -2841,7 +2976,8 @@ def _serve_run(model, B: int, P: int, n_new: int, how: str) -> dict:
 
 
 def _one_rank_serve(arch: str, B: int, P: int, n_new: int, how: str) -> dict:
-    """One run of SHARDED_SERVE_RUNS on one rank, float32, seed-0 weights."""
+    """One run of SHARDED_SERVE_RUNS or BLOCK_SERVE_RUNS on one rank, float32,
+    seed-0 weights."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
 
@@ -2855,14 +2991,40 @@ def _one_rank_serve(arch: str, B: int, P: int, n_new: int, how: str) -> dict:
             "ms_per_step": res["wall_s"] * 1e3 / res["steps"]}
 
 
+def _recording_norms(seen: set):
+    """Put wrappers of the rmsnorm kernels in ``kernels.ops`` that add each
+    call's ``(entry, rows, D)`` to ``seen`` (float32 only: the kernels phase
+    checks that); returns a function that puts the kernels back."""
+    from repro_torch.kernels import ops
+
+    fns = {"forward": ops.rmsnorm_cuda, "backward": ops.rmsnorm_bwd_cuda}
+
+    def recording(entry: str):
+        def call(x, *args, **kwargs):
+            if x.dtype != torch.float32:
+                raise AssertionError(f"rmsnorm {entry} on {x.dtype}: the kernels phase checks "
+                                     f"float32")
+            seen.add((entry, x.numel() // x.shape[-1], x.shape[-1]))
+            return fns[entry](x, *args, **kwargs)
+        return call
+
+    ops.rmsnorm_cuda, ops.rmsnorm_bwd_cuda = recording("forward"), recording("backward")
+
+    def restore():
+        ops.rmsnorm_cuda, ops.rmsnorm_bwd_cuda = fns["forward"], fns["backward"]
+    return restore
+
+
 def _sharded_serve_rank(rank: int, world: int, runs: tuple) -> list:
-    """One rank of the sharded_serve phase, in its own spawned process: each
-    run at full width on SERVE_MESH in float32, its weights drawn whole from
-    seed 0 and sliced; the kernels' counts and the exchanged bytes set to 0
-    just before the engine's run and read just after; then the abstract
-    capture of its decode step.  Each call to the attention kernels in the
-    run is recorded, ``(entry, q shape, K/V shape, length)``, for the phase
-    to hold against the shapes the kernels phase checked."""
+    """One rank of the sharded_serve phase (or of sharded_blocks'), in its
+    own spawned process: each run at full width on SERVE_MESH in float32,
+    its weights drawn whole from seed 0 and sliced; the kernels' counts and
+    the exchanged bytes set to 0 just before the engine's run and read just
+    after; then the abstract capture of
+    its decode step.  Each call to the attention kernels in the run is
+    recorded, ``(entry, q shape, K/V shape, length)``, and each to the norm
+    kernels, ``(entry, rows, D)``, for the phase to hold against the shapes
+    the kernels phase checked."""
     if str(SRC) not in sys.path:
         sys.path.insert(0, str(SRC))
     import torch.distributed as dist
@@ -2907,15 +3069,17 @@ def _sharded_serve_rank(rank: int, world: int, runs: tuple) -> list:
         rmsnorm_cuda.launches = decode_attention_cuda.launches = 0
         decode_attention_partial_cuda.launches = 0
         EXCHANGED.clear()
-        calls = set()
+        calls, norms = set(), set()
         ops.decode_attention_cuda = recording("whole", decode_attention_cuda, calls)
         ops.decode_attention_partial_cuda = recording("partial", decode_attention_partial_cuda,
                                                       calls)
+        restore_norms = _recording_norms(norms)
         try:
             res = _serve_run(model, B, P, n_new, how)
         finally:
             ops.decode_attention_cuda = decode_attention_cuda
             ops.decode_attention_partial_cuda = decode_attention_partial_cuda
+            restore_norms()
         launches = {"rmsnorm": rmsnorm_cuda.launches,
                     "decode_attention": decode_attention_cuda.launches}
         partial = decode_attention_partial_cuda.launches
@@ -2930,7 +3094,10 @@ def _sharded_serve_rank(rank: int, world: int, runs: tuple) -> list:
         if launches != expect:
             raise AssertionError(f"rank {rank} {arch} B {B}: launches {launches} in {steps} "
                                  f"steps ({how}), not {expect}")
-        spec = model.cache_specs(B, P + n_new)[0]
+        # the first attention entry's (a KV cache's slots cut: sequence-parallel)
+        specs = model.cache_specs(B, P + n_new)
+        spec = next(s for s in specs if "k" in s or "c_kv" in s)
+        state_spec = next((s for s in specs if "k" not in s and "c_kv" not in s), None)
         sequence_parallel = any(len(s) > 1 and s[1] is not None for s in spec.values())
         if partial != (launches["decode_attention"] if sequence_parallel else 0):
             raise AssertionError(f"rank {rank} {arch}: {partial} partial launches")
@@ -2952,13 +3119,16 @@ def _sharded_serve_rank(rank: int, world: int, runs: tuple) -> list:
             "outputs": res["outputs"], "logits": [t.numpy() for t in res["logits"]],
             "steps": steps, "ms_per_step": res["wall_s"] * 1e3 / steps, "init_s": init_s,
             "launches": launches, "partial_launches": partial,
-            "attention_calls": sorted(calls), "launches_per_step": per_step, "cache_spec_entry_0": spec,
+            "attention_calls": sorted(calls), "norm_calls": sorted(norms),
+            "launches_per_step": per_step,
+            "attention_cache_spec": spec, "state_cache_spec": state_spec,
             "sequence_parallel": sequence_parallel,
             "bytes_exchanged_per_step": exchanged,
             "ops_per_step": len(res["ops"]), "schedule_equal_to_abstract": True,
             "abstract_trace_s": trace_s,
             "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
-            "cache_bytes": cache_bytes, "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+            "cache_bytes": cache_bytes, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "unpartitioned": model.unpartitioned()})
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -2977,7 +3147,7 @@ def phase_sharded_serve(card: str) -> dict:
     world = SERVE_MESH["data"] * SERVE_MESH["model"]
     ranks = run_world(_sharded_serve_rank, world, SHARDED_SERVE_RUNS, timeout=900)
     # the kernels phase held the attention kernels at these calls' shapes
-    checked = _serve_attention_calls(_serve_attention_cases())
+    checked = _serve_attention_calls(_serve_attention_cases(SHARDED_SERVE_RUNS))
     seen = {(e, tuple(q), tuple(kv), n) for r in ranks for run in r
             for e, q, kv, n in run["attention_calls"]}
     if not seen <= checked or {c[:3] for c in seen} != {c[:3] for c in checked}:
@@ -2999,19 +3169,19 @@ def phase_sharded_serve(card: str) -> dict:
             err = [float((torch.from_numpy(a) - b[rows]).abs().max())
                    for a, b in zip(got["logits"], want["logits"])]
             if not max(err) <= SHARDED_SERVE_TOL:
-                raise AssertionError(f"rank {got['rank']} {arch} B {B}: first / last step "
-                                     f"logits differ by {err} > {SHARDED_SERVE_TOL}")
+                raise AssertionError(f"rank {got['rank']} {arch} B {B}: a step's logits "
+                                     f"differ by {max(err)} > {SHARDED_SERVE_TOL}")
             errs.append(max(err))
             per_rank.append({k: got[k] for k in (
                 "rank", "coord", "ms_per_step", "prefill_s", "init_s", "launches",
                 "partial_launches", "bytes_exchanged_per_step", "bytes_exchanged_by_prefill",
                 "ops_per_step", "abstract_trace_s", "param_bytes", "cache_bytes",
-                "peak_mem_bytes")} | {"first_last_logit_max_abs_err": err})
+                "peak_mem_bytes")} | {"logit_max_abs_err_by_step": err})
         first = ranks[0][i]
         runs.append({
             "arch": arch, "requests": B, "prompt_len": P, "new_tokens": n_new, "prompt_by": how,
             "steps": first["steps"], "sequence_parallel": first["sequence_parallel"],
-            "cache_spec_entry_0": first["cache_spec_entry_0"],
+            "attention_cache_spec": first["attention_cache_spec"],
             "launches_per_step_and_rank": first["launches_per_step"],
             "launches_all_ranks": {k: sum(r[i]["launches"][k] for r in ranks)
                                    for k in first["launches"]},
@@ -3026,6 +3196,506 @@ def phase_sharded_serve(card: str) -> dict:
                     "exchange, not a speed",
             "runs": runs, "one_rank_s": single_s, "seconds": time.perf_counter() - t0,
             "card": card}
+
+
+def _blocks_replicated(cfg, mesh):
+    """The model of ``cfg`` on the bound ``mesh`` from seed 0, with its Mamba2
+    blocks, mLSTM cells and MLA attention replicated over ``model`` (their
+    specs without the axis, as the rules leave a block whose heads ``model``
+    does not divide): every rank holds and computes them whole, their states
+    cut by their rows alone; all else placed by the rules.  The control of
+    the sharded_blocks phase's peaks."""
+    from repro_torch.models import Model
+
+    model = Model(cfg, mesh=mesh)
+    parts = {"mamba": "mamba", "xlstm_m": "cell", "dense": "attn", "moe": "attn"}
+    named = [(f"blocks.{i}", b) for i, b in enumerate(model.blocks)]
+    named += [("shared", model.shared)] if hasattr(model, "shared") else []
+    whole = tuple(f"{name}.{parts[b.kind]}." for name, b in named if b.kind in parts
+                  and (parts[b.kind] != "attn" or cfg.attn_kind == "mla"))
+    shardings = {}
+    for name, spec in model.shardings.items():
+        if name.startswith(whole):
+            spec = tuple(None if part == "model" else part for part in spec)
+            while spec and spec[-1] is None:
+                spec = spec[:-1]
+        shardings[name] = spec
+    shapes = {name: spec.shape for name, spec in model.param_specs().items()}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if shardings[name] != model.shardings[name]:
+                p.data = torch.zeros(shapes[name], dtype=p.dtype, device=p.device)
+    model.bind_mesh(mesh, shardings)
+    return model.init(torch.Generator(device="cuda").manual_seed(0))
+
+
+def _anchored(arch: str, fn):
+    """``fn(model)`` on the one-rank model of ``arch`` from seed 0 in float64
+    parameters and products (the model's own float32 states, gates and
+    scores stay float32), with the kernels' plain versions in place of the
+    kernels, which take float32 and bf16 only: the sharded_blocks phase's
+    reference for what float32 rounding alone moves.  The model is freed
+    before this returns."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_ref
+    from repro_torch.models import Model
+
+    cfg = get_config(arch)
+    single = Model(cfg.with_(param_dtype=torch.float32)).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    model = Model(cfg.with_(param_dtype=torch.float64))
+    with torch.no_grad():
+        for p, q in zip(model.parameters(), single.parameters()):
+            p.copy_(q)
+    del single
+    with mock.patch.multiple(ops, rmsnorm=rmsnorm_ref, decode_attention=decode_attention_ref):
+        out = fn(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _block_serve_rank(rank: int, world: int) -> list:
+    """One rank of the sharded_blocks phase's serving, in its own spawned
+    process: BLOCK_SERVE_RUNS through :func:`_sharded_serve_rank` with each
+    step's logits; then each run's work with the blocks replicated over
+    ``model`` (:func:`_blocks_replicated`): the engine's caches and two
+    decode steps, or the prefill and a decode step, its peak memory and first
+    logits."""
+    runs = _sharded_serve_rank(rank, world, BLOCK_SERVE_RUNS)
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.collectives import EXCHANGED
+    from repro_torch.distributed.sharding import rows_spec, shard_tensor
+    from repro_torch.launch.mesh import Mesh
+
+    mesh = Mesh(SERVE_MESH).bind()
+    for run, (arch, B, P, n_new, how) in zip(runs, BLOCK_SERVE_RUNS):
+        cfg = get_config(arch).with_(param_dtype=torch.float32)
+        model = _blocks_replicated(cfg, mesh)
+        prompts = torch.tensor(np.random.default_rng(0).integers(1, cfg.vocab, (B, P)),
+                               device="cuda")
+        rows = rows_spec(mesh, B)
+        mine = prompts if rows is None else shard_tensor(prompts, (rows,), mesh)
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        EXCHANGED.clear()
+        if how == "prefill":
+            first, caches = model.prefill(mine, batch=B, max_len=P + n_new)
+            model.decode_step(caches, torch.argmax(first, dim=-1), P)
+        else:
+            caches = model.init_caches(B, P + n_new)
+            first, caches = model.decode_step(caches, mine[:, 0], 0)
+            model.decode_step(caches, mine[:, 1], 1)
+        torch.cuda.synchronize()
+        run["whole_blocks"] = {
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "unpartitioned": len(model.unpartitioned()),
+            "bytes_exchanged": dict(EXCHANGED),
+            "first_logits": first.float().cpu().numpy()}
+        del model, caches, first
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
+
+
+def _block_train_batches() -> list:
+    """BLOCK_TRAIN_STEPS batches of the synthetic data, ``(tokens, labels)``."""
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+
+    _, batch, seq = BLOCK_TRAIN
+    data = SyntheticLMDataset(DataConfig(vocab=TRAIN_DATA_VOCAB, seq_len=seq, global_batch=batch))
+    return [(b["tokens"], b["labels"]) for b, _ in zip(data, range(BLOCK_TRAIN_STEPS))]
+
+
+def _block_train_steps(model, step, batches, after=None) -> dict:
+    """The steps of one train run: losses, gradient norms, learning rates,
+    ms and collectives a step, and the peak memory so far at the end of
+    each; ``after(i)`` called after step i (from 0), outside all of them."""
+    from repro_torch.core.capture import capture_collectives
+
+    state, out = step.init_state(), {"losses": [], "grad_norms": [], "lrs": [], "ms": [],
+                                     "collectives": [], "peaks": []}
+    for i, (tokens, labels) in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with capture_collectives() as ops:
+            state, metrics = step(state, tokens, labels)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["collectives"].append(len(ops))
+        out["peaks"].append(torch.cuda.max_memory_allocated())
+        for key, name in (("losses", "loss"), ("grad_norms", "grad_norm"), ("lrs", "lr")):
+            out[key].append(float(metrics[name]))
+        if after is not None:
+            after(i)
+            torch.cuda.reset_peak_memory_stats()  # the next step's peak without after's
+    return out
+
+
+def _params_apart(got: dict, want: dict) -> dict:
+    """How far the tensors ``got`` lie from ``want`` (``{name: tensor}`` of
+    equal shapes): each leaf's entries outside 1e-5 + 1e-5 |p|
+    (BLOCK_TRAIN_TOL) and its entries, and over all of them the share
+    outside and the largest difference."""
+    tol, outside, entries, worst = BLOCK_TRAIN_TOL, {}, {}, 0.0
+    for name, p in got.items():
+        w = want[name].double()
+        diff = (p.detach().double() - w).abs()
+        outside[name] = int((diff > tol["param_atol"] + tol["param_rtol"] * w.abs()).sum())
+        entries[name] = w.numel()
+        worst = max(worst, float(diff.max()))
+    return {"outside": outside, "entries": entries,
+            "share": sum(outside.values()) / sum(entries.values()), "max_abs_diff": worst}
+
+
+def _leaves_over(got: dict, one: dict) -> list:
+    """The leaves of ``got`` (a :func:`_params_apart` from the anchor) with
+    more entries outside than BLOCK_ANCHOR_FACTOR x the one-rank run's on the
+    same entries (``one``) + BLOCK_LEAF_SLACK."""
+    return [(name, n, one["outside"][name]) for name, n in got["outside"].items()
+            if n > BLOCK_ANCHOR_FACTOR * one["outside"][name] + BLOCK_LEAF_SLACK]
+
+
+def _params_line(rec: dict) -> dict:
+    """One step's :func:`_params_apart` records for the printed line: each
+    comparison's share outside and largest difference, the leaf nearest its
+    bound (its outside entries over BLOCK_ANCHOR_FACTOR x the one-rank run's
+    + BLOCK_LEAF_SLACK: at most 1 holds) and, after step 1, the planted
+    leaf's ratio (above 1: rejected)."""
+    def ratio(got, name):
+        one = rec["one_rank_from_anchor"]["outside"][name]
+        return got["outside"][name] / (BLOCK_ANCHOR_FACTOR * one + BLOCK_LEAF_SLACK)
+
+    out = {k: {"share": v["share"], "max_abs_diff": v["max_abs_diff"]} for k, v in rec.items()}
+    worst = max(rec["anchor"]["outside"], key=lambda name: ratio(rec["anchor"], name))
+    out["nearest_leaf"] = {"name": worst, "outside": rec["anchor"]["outside"][worst],
+                           "one_rank_outside": rec["one_rank_from_anchor"]["outside"][worst],
+                           "entries": rec["anchor"]["entries"][worst],
+                           "ratio_to_bound": ratio(rec["anchor"], worst)}
+    if "planted" in rec:
+        out["planted"] = {"name": BLOCK_PLANTED_LEAF,
+                          "outside": rec["planted"]["outside"][BLOCK_PLANTED_LEAF],
+                          "entries": rec["planted"]["entries"][BLOCK_PLANTED_LEAF],
+                          "ratio_to_bound": ratio(rec["planted"], BLOCK_PLANTED_LEAF)}
+    return out
+
+
+def _block_train_rank(rank: int, world: int) -> dict:
+    """One rank of the sharded_blocks phase's training, in its own spawned
+    process: BLOCK_TRAIN at full width and depth on SHARDED_MESH in float32,
+    its weights drawn whole from seed 0 and sliced; the kernels' counts and
+    the exchanged bytes set to 0 just before the steps and read just after;
+    after each step (outside its time and peak) its parameter shards, and
+    the one-rank run's on the same entries, against the anchor's
+    (BLOCK_TRAIN_DIR, :func:`_params_apart`; after step 1 also the planted
+    leaf); its rmsnorm calls recorded; then one step with the mLSTM cells
+    replicated over model (:func:`_blocks_replicated`), and its peak."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.collectives import EXCHANGED
+    from repro_torch.distributed.sharding import shard_tensor
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import TrainConfig, build_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    mesh = Mesh(SHARDED_MESH).bind()
+    arch = BLOCK_TRAIN[0]
+    cfg = get_config(arch).with_(param_dtype=torch.float32)
+    tcfg = TrainConfig(optim=AdamWConfig(**BLOCK_TRAIN_OPT))
+    batches = _block_train_batches()
+    model = Model(cfg, mesh=mesh).init(torch.Generator(device="cuda").manual_seed(0))
+    step = build_train_step(model, tcfg, mesh)
+    params = []  # after each step: its shards against the one-rank run's and the anchor's
+    planted = model.get_parameter(BLOCK_PLANTED_LEAF).detach().clone()  # before any step
+
+    def held(i):
+        def shards(ref):
+            whole = torch.load(BLOCK_TRAIN_DIR / f"{arch}_{ref}{i + 1}.pt", map_location="cuda")
+            return {k: shard_tensor(t, model.shardings[k], mesh) for k, t in whole.items()}
+
+        mine = {k: p.detach() for k, p in model.named_parameters()}
+        one, anchor = shards("step"), shards("anchor_step")
+        params.append({"one_rank": _params_apart(mine, one),
+                       "anchor": _params_apart(mine, anchor),
+                       "one_rank_from_anchor": _params_apart(one, anchor)})
+        if i == 0:  # the leaf as a step that left it alone would: it must be rejected
+            params[-1]["planted"] = _params_apart({BLOCK_PLANTED_LEAF: planted},
+                                                  {BLOCK_PLANTED_LEAF: anchor[BLOCK_PLANTED_LEAF]})
+
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    rmsnorm_cuda.launches = rmsnorm_bwd_cuda.launches = 0
+    EXCHANGED.clear()
+    norms = set()
+    restore_norms = _recording_norms(norms)
+    try:
+        out = _block_train_steps(model, step, batches, after=held)
+    finally:
+        restore_norms()
+    out.update(rank=rank, coord=mesh.coord, peak_mem_bytes=max(out.pop("peaks")),
+               launches={"rmsnorm": rmsnorm_cuda.launches,
+                         "rmsnorm_bwd": rmsnorm_bwd_cuda.launches},
+               bytes_exchanged_per_step={k: v / len(batches) for k, v in EXCHANGED.items()},
+               unpartitioned=step.unpartitioned, params=params, norm_calls=sorted(norms),
+               param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()))
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = _blocks_replicated(cfg, mesh)
+    step = build_train_step(model, tcfg, mesh)
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    EXCHANGED.clear()
+    whole = _block_train_steps(model, step, batches[:1])
+    out["whole_blocks"] = {"peak_mem_bytes": whole["peaks"][0],
+                           "unpartitioned": len(step.unpartitioned),
+                           "loss": whole["losses"][0], "ms": whole["ms"][0],
+                           "collectives": whole["collectives"][0],
+                           "bytes_exchanged": dict(EXCHANGED)}
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _block_serve_lines(card: str) -> list:
+    """The serving cases of sharded_blocks: BLOCK_SERVE_RUNS first on one rank
+    in this process, each freed before the next, and its float64 anchor
+    (:func:`_anchored`); then one world of 4 ranks."""
+    from repro_torch.distributed import run_world
+
+    t0 = time.perf_counter()
+    single, anchors = [], []
+    for run in BLOCK_SERVE_RUNS:
+        single.append(_one_rank_serve(*run))
+        anchors.append(_anchored(run[0], lambda model: _serve_run(model, *run[1:])))
+    world = SERVE_MESH["data"] * SERVE_MESH["model"]
+    ranks = run_world(_block_serve_rank, world, timeout=900)
+    checked = _serve_attention_calls(_serve_attention_cases(BLOCK_SERVE_RUNS))
+    seen = {(e, tuple(q), tuple(kv), n) for r in ranks for run in r
+            for e, q, kv, n in run["attention_calls"]}
+    if not seen <= checked or {c[:3] for c in seen} != {c[:3] for c in checked}:
+        raise AssertionError(f"the ranks' attention calls are not those the kernels phase "
+                             f"checked: {sorted(seen - checked)[:4]} unchecked")
+    n = SERVE_MESH["data"]
+    lines = []
+    for i, (arch, B, P, n_new, how) in enumerate(BLOCK_SERVE_RUNS):
+        want, anchor, per_rank = single[i], anchors[i]["logits"], []
+        if (len(want["logits"]) != want["steps"] + (how == "prefill")
+                or len(anchor) != len(want["logits"])):
+            raise AssertionError(f"{arch}: {len(want['logits'])} and {len(anchor)} steps' "
+                                 f"logits kept")
+        for r in ranks:
+            got = r[i]
+            if got["outputs"] != want["outputs"]:
+                raise AssertionError(f"rank {got['rank']} {arch}: tokens differ from the "
+                                     f"one-rank run's")
+            d = got["coord"]["data"]
+            rows = slice(None) if B % n else slice(d * B // n, (d + 1) * B // n)
+            err = [float((torch.from_numpy(a) - b[rows]).abs().max())
+                   for a, b in zip(got["logits"], want["logits"])]
+            off = [float((torch.from_numpy(a).double() - b[rows].double()).abs().max())
+                   for a, b in zip(got["logits"], anchor)]
+            # how far float32 alone moves the one-rank run from the anchor, step by step
+            one_off = [float((a[rows].double() - b[rows].double()).abs().max())
+                       for a, b in zip(want["logits"], anchor)]
+            bound = [BLOCK_ANCHOR_FACTOR * o + BLOCK_SERVE_TOL for o in one_off]
+            over = [(i, o, b) for i, (o, b) in enumerate(zip(off, bound)) if not o <= b]
+            if len(off) != len(anchor) or over:
+                raise AssertionError(f"rank {got['rank']} {arch}: (step, distance, bound) "
+                                     f"{over[:4]}: logits further from the float64 anchor "
+                                     f"than {BLOCK_ANCHOR_FACTOR} x the one-rank run's + "
+                                     f"{BLOCK_SERVE_TOL}")
+            whole = got["whole_blocks"]
+            first_logits = torch.from_numpy(whole.pop("first_logits"))
+            ctl = float((first_logits - want["logits"][0][rows]).abs().max())
+            ctl_off = float((first_logits.double() - anchor[0][rows].double()).abs().max())
+            if not ctl_off <= bound[0]:
+                raise AssertionError(f"rank {got['rank']} {arch}: the whole-block control's "
+                                     f"first logits are {ctl_off} from the anchor")
+            if got["unpartitioned"] or not whole["unpartitioned"]:
+                raise AssertionError(f"rank {got['rank']} {arch}: blocks whole "
+                                     f"{got['unpartitioned']}, control {whole['unpartitioned']}")
+            per_rank.append({k: got[k] for k in (
+                "rank", "coord", "ms_per_step", "prefill_s", "init_s", "launches",
+                "bytes_exchanged_per_step", "bytes_exchanged_by_prefill", "ops_per_step",
+                "param_bytes", "cache_bytes", "peak_mem_bytes")}
+                | {"logit_max_abs_err": max(err), "logit_err_by_step": err,
+                   "anchor_err_by_step": off, "one_rank_anchor_err_by_step": one_off,
+                   "anchor_ratio_to_bound": max(o / b for o, b in zip(off, bound)),
+                   "whole_blocks": {**whole, "logit_err": ctl, "anchor_err": ctl_off}})
+        first = ranks[0][i]
+        lines.append({
+            "phase": "sharded_blocks", "case": f"{arch} serve", "mesh": SERVE_MESH,
+            "dtype": "float32", "requests": B, "prompt_len": P, "new_tokens": n_new,
+            "prompt_by": how, "tokens_equal": True, "steps_held": len(want["logits"]),
+            "schedules_equal_to_abstract": True,
+            "logit_max_abs_err": max(p["logit_max_abs_err"] for p in per_rank),
+            "anchor": "one rank, float64 parameters and products, the kernels' plain versions",
+            "one_rank_anchor_err": max(max(p["one_rank_anchor_err_by_step"]) for p in per_rank),
+            "anchor_max_abs_err": max(max(p["anchor_err_by_step"]) for p in per_rank),
+            "anchor_tolerance": f"each step: {BLOCK_ANCHOR_FACTOR} x the one-rank run's "
+                                f"+ {BLOCK_SERVE_TOL}",
+            "anchor_max_ratio_to_bound": max(p["anchor_ratio_to_bound"] for p in per_rank),
+            "issue_tolerance_vs_one_rank": BLOCK_SERVE_TOL,
+            "anchor_tokens_equal": anchors[i]["outputs"] == want["outputs"],
+            "launches_per_step_and_rank": first["launches_per_step"],
+            "launches_all_ranks": {k: sum(p["launches"][k] for p in per_rank)
+                                   for k in first["launches"]},
+            "norm_calls": sorted({tuple(c) for r in ranks for c in r[i]["norm_calls"]}),
+            "collectives_per_step": first["ops_per_step"],
+            "attention_cache_spec": first["attention_cache_spec"],
+            "state_cache_spec": first["state_cache_spec"],
+            "peak_mem_bytes_per_rank": [p["peak_mem_bytes"] for p in per_rank],
+            "whole_blocks_peak_mem_bytes_per_rank": [p["whole_blocks"]["peak_mem_bytes"]
+                                                    for p in per_rank],
+            "one_rank_ms_per_step": want["ms_per_step"],
+            "ms_per_step_median": float(np.median([p["ms_per_step"] for p in per_rank])),
+            "per_rank": per_rank, "exchange": "gloo via host",
+            "note": "4 ranks are 4 processes sharing one card; ms a step measures the host "
+                    "exchange, not a speed",
+            "seconds": time.perf_counter() - t0, "card": card})
+    return lines
+
+
+def _block_train_line(card: str) -> dict:
+    """The training case of sharded_blocks: the one-rank run in this process
+    (its parameters after each step saved for the ranks) and its float64
+    anchor (:func:`_anchored`), then one world of 4 ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import run_world
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
+    from repro_torch.models import Model
+    from repro_torch.models.model import decode_launches
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import TrainConfig, build_train_step
+
+    t0 = time.perf_counter()
+    arch, batch, seq = BLOCK_TRAIN
+    cfg = get_config(arch).with_(param_dtype=torch.float32)
+    tcfg = TrainConfig(optim=AdamWConfig(**BLOCK_TRAIN_OPT))
+    batches = _block_train_batches()
+    BLOCK_TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    model = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    step = build_train_step(model, tcfg)
+
+    def saving(model, name):
+        def saved(i):
+            torch.save({k: p.detach() for k, p in model.named_parameters()},
+                       BLOCK_TRAIN_DIR / f"{arch}_{name}{i + 1}.pt")
+        return saved
+
+    torch.cuda.reset_peak_memory_stats()
+    rmsnorm_cuda.launches = rmsnorm_bwd_cuda.launches = 0
+    single = _block_train_steps(model, step, batches, after=saving(model, "step"))
+    single.update(peak_mem_bytes=max(single.pop("peaks")),
+                  launches={"rmsnorm": rmsnorm_cuda.launches,
+                            "rmsnorm_bwd": rmsnorm_bwd_cuda.launches})
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    anchor = _anchored(arch, lambda model: _block_train_steps(
+        model, build_train_step(model, tcfg), batches, after=saving(model, "anchor_step")))
+    world = SHARDED_MESH["data"] * SHARDED_MESH["model"]
+    ranks = run_world(_block_train_rank, world, timeout=900)
+    tol = BLOCK_TRAIN_TOL
+    norms = decode_launches(cfg)["rmsnorm"]  # each norm once forward, once backward
+    expect = {"rmsnorm": norms * BLOCK_TRAIN_STEPS, "rmsnorm_bwd": norms * BLOCK_TRAIN_STEPS}
+    # how far float32 alone moves the one-rank run's gradient norm from the anchor's
+    one_off = [abs(a - b) / b for a, b in zip(single["grad_norms"], anchor["grad_norms"])]
+    whole_cells = [f"blocks.{i}.cell" for i, b in enumerate(cfg.xlstm_pattern) if b == "s"]
+    for r in ranks:
+        loss_err = max(abs(a - b) for a, b in zip(r["losses"], single["losses"]))
+        gnorm_dev = [abs(a - b) / b for a, b in zip(r["grad_norms"], single["grad_norms"])]
+        off = [abs(a - b) / b for a, b in zip(r["grad_norms"], anchor["grad_norms"])]
+        faults = []
+        if r["launches"] != expect or single["launches"] != expect:
+            faults.append(f"launches {r['launches']} (one rank {single['launches']}), "
+                          f"want {expect}")
+        if not loss_err < tol["loss"]:
+            faults.append(f"losses {r['losses']} against {single['losses']}")
+        if not gnorm_dev[0] < tol["grad_norm_rtol"]:
+            faults.append(f"step 1's gradient norm {r['grad_norms'][0]} against "
+                          f"{single['grad_norms'][0]}")
+        for i, (got, one) in enumerate(zip(off, one_off)):
+            if not got <= BLOCK_ANCHOR_FACTOR * one + tol["grad_norm_rtol"]:
+                faults.append(f"step {i + 1}'s gradient norm {got} from the anchor's, the "
+                              f"one-rank run's {one}")
+        for i, rec in enumerate(r["params"]):
+            over = _leaves_over(rec["anchor"], rec["one_rank_from_anchor"])
+            if over:
+                faults.append(f"after step {i + 1}, leaves (name, outside, one rank's) "
+                              f"{over[:4]} past the anchor")
+        planted = r["params"][0]["planted"]
+        if not _leaves_over(planted, r["params"][0]["one_rank_from_anchor"]):
+            faults.append(f"a planted wrong {BLOCK_PLANTED_LEAF} passes: {planted['outside']}")
+        if abs(r["whole_blocks"]["loss"] - single["losses"][0]) >= tol["loss"]:
+            faults.append(f"whole-block loss {r['whole_blocks']['loss']}")
+        if r["unpartitioned"] != whole_cells:
+            faults.append(f"whole on every rank: {r['unpartitioned']}")
+        if faults:
+            raise AssertionError(f"rank {r['rank']} {arch}: " + "; ".join(faults))
+        r.update(loss_max_abs_err=loss_err, grad_norm_rel_dev=gnorm_dev,
+                 grad_norm_anchor_rel_dev=off, params=[_params_line(rec) for rec in r["params"]])
+    keys = ("rank", "coord", "losses", "grad_norms", "ms", "collectives", "launches",
+            "loss_max_abs_err", "grad_norm_rel_dev", "grad_norm_anchor_rel_dev", "params",
+            "peak_mem_bytes", "param_bytes", "bytes_exchanged_per_step", "whole_blocks")
+    return {"phase": "sharded_blocks", "case": f"{arch} train", "mesh": SHARDED_MESH,
+            "dtype": "float32", "batch": batch, "seq": seq, "microbatches": 1,
+            "steps": BLOCK_TRAIN_STEPS, "optim": BLOCK_TRAIN_OPT, "tolerance": tol,
+            "losses": ranks[0]["losses"], "single_rank_losses": single["losses"],
+            "grad_norms": ranks[0]["grad_norms"],
+            "single_rank_grad_norms": single["grad_norms"],
+            "anchor_losses": anchor["losses"], "anchor_grad_norms": anchor["grad_norms"],
+            "one_rank_grad_norm_anchor_rel_dev": one_off,
+            "params_after_each_step": ranks[0]["params"],
+            "leaf_bound": f"{BLOCK_ANCHOR_FACTOR} x the one-rank run's outside entries "
+                          f"+ {BLOCK_LEAF_SLACK}, per leaf and step",
+            "single_rank_peak_mem_bytes": single["peak_mem_bytes"],
+            "launches_per_step_and_rank": {k: v // BLOCK_TRAIN_STEPS for k, v in expect.items()},
+            "launches_all_ranks": {k: sum(r["launches"][k] for r in ranks) for k in expect},
+            "norm_calls": sorted({tuple(c) for r in ranks for c in r["norm_calls"]}),
+            "collectives_per_step": ranks[0]["collectives"],
+            "unpartitioned": ranks[0]["unpartitioned"],
+            "peak_mem_bytes_per_rank": [r["peak_mem_bytes"] for r in ranks],
+            "whole_blocks_peak_mem_bytes_per_rank": [r["whole_blocks"]["peak_mem_bytes"]
+                                                    for r in ranks],
+            "per_rank": [{k: r[k] for k in keys} for r in ranks], "exchange": "gloo via host",
+            "note": "4 ranks are 4 processes sharing one card; ms a step measures the host "
+                    "exchange, not a speed",
+            "seconds": time.perf_counter() - t0, "card": card}
+
+
+def phase_sharded_blocks(card: str) -> list:
+    """Partitioned compute for the Mamba2, mLSTM and MLA blocks (see the
+    module's doc): one line a case."""
+    lines = _block_serve_lines(card)
+    torch.cuda.empty_cache()
+    lines.append(_block_train_line(card))
+    # the kernels phase held the norms at the shapes the ranks gave them
+    seen, want = {c for line in lines for c in line["norm_calls"]}, _block_norm_cases(True)
+    if seen != want:
+        raise AssertionError(f"the ranks' rmsnorm calls are not those the kernels phase "
+                             f"checked: {sorted(seen - want)} unchecked, {sorted(want - seen)} "
+                             f"unseen")
+    return lines
 
 
 def main() -> int:
@@ -3076,6 +3746,11 @@ def main() -> int:
     remat = done("remat", phase_remat(card))
     torch.cuda.empty_cache()
     serve_sharded = done("sharded_serve", phase_sharded_serve(card))
+    torch.cuda.empty_cache()
+    blocks = phase_sharded_blocks(card)
+    for line in blocks:
+        emit(line)
+    ended["sharded_blocks"] = time.perf_counter() - t_start
     emit({"phase": "timing", "seconds_at_end_of": ended})
 
     def launches_and_device_ms(name):
@@ -3107,6 +3782,9 @@ def main() -> int:
                 tag = ", sequence-parallel" if run["sequence_parallel"] else ""
                 paths[f"{run['arch']} sharded serve B {run['requests']}{tag}"] = \
                     run["launches_all_ranks"][name]
+        for line in blocks:  # all 4 ranks, the blocks head-parallel
+            if name in line["launches_all_ranks"]:
+                paths[f"{line['case']}, partitioned blocks"] = line["launches_all_ranks"][name]
         return {"launches_by_path": paths} if paths else {}
 
     emit({"kernels": [

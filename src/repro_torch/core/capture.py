@@ -51,6 +51,7 @@ __all__ = [
 KINDS = {  # the port's exchange -> the HLO collective it is
     "all_reduce": "all-reduce",
     "all_gather": "all-gather",
+    "reduce_scatter": "reduce-scatter",
     "all_to_all": "all-to-all",
     "ring_shift": "collective-permute",
 }
@@ -116,7 +117,8 @@ def record(name: str, sent: torch.Tensor, group_size: int, axes: Tuple[str, ...]
         return
     kind = KINDS[name]
     nbytes = sent.numel() * sent.element_size()
-    result = nbytes * group_size if kind == "all-gather" else nbytes
+    result = {"all-gather": nbytes * group_size,
+              "reduce-scatter": nbytes // max(1, group_size)}.get(kind, nbytes)
     dtype = _HLO_DTYPE.get(sent.dtype, str(sent.dtype))
     op = CollectiveOp(kind=kind, result_bytes=result,
                       operand_bytes=_operand_bytes(kind, result, group_size),

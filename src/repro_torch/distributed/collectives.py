@@ -26,12 +26,13 @@ tensor-parallel regions' pairs, each the other's transpose:
 :func:`copy_in` (identity; backward all-reduce) at the entry of a region
 where each rank computes a part, :func:`reduce_out` (all-reduce; backward
 identity) at its exit, :func:`gather` (all-gather; backward this rank's
-slice) and :func:`split` (this rank's slice; backward all-gather), and
+slice, or with ``partial`` a reduce-scatter) and :func:`split` (this rank's
+slice; backward all-gather), and
 :func:`all_to_all` (backward: the exchange back).  ``EXCHANGED`` adds up, by
 collective, the bytes of the buffers this rank hands to them.
 
 Every exchange passes through ``_all_reduce``, ``_all_gather``,
-``_all_to_all`` or ``_ring_shift``, and each reports what it is handed to
+``_reduce_scatter``, ``_all_to_all`` or ``_ring_shift``, and each reports what it is handed to
 the active ``core.capture.capture_collectives`` with its group's size and
 mesh axes (``Mesh.bind`` names its groups' axes here).  A
 ``core.capture.CaptureGroup`` (``Mesh.bind_abstract``: a rank with no world)
@@ -122,6 +123,19 @@ def _all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
     return torch.stack(parts).to(t.device)
+
+
+def _reduce_scatter(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """The sum of every rank's ``t`` over the group, this rank's chunk of it
+    along ``dim``."""
+    src = t.detach().to(exchange_device(t, group)).contiguous()
+    _count("reduce_scatter", src, group)
+    if isinstance(group, CaptureGroup):
+        return _own(src, group, dim).clone()
+    chunks = [c.contiguous() for c in src.chunk(dist.get_world_size(group), dim=dim)]
+    out = torch.empty_like(chunks[0])
+    dist.reduce_scatter(out, chunks, group=group)
+    return out.to(t.device)
 
 
 def _all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
@@ -293,6 +307,17 @@ class _Gather(torch.autograd.Function):
         return _own(g, ctx.group, ctx.dim).contiguous(), None, None
 
 
+class _GatherPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return torch.cat(_all_gather(x, group).unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
 class _Split(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
@@ -329,11 +354,15 @@ def reduce_out(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     return x if group is None else _ReduceOut.apply(x, group)
 
 
-def gather(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+def gather(x: torch.Tensor, mesh, axes, dim: int = 0, *, partial: bool = False) -> torch.Tensor:
     """Every rank's ``x`` along ``axes`` joined on ``dim``; the gradient is
-    this rank's slice (what follows is the same on every rank)."""
+    this rank's slice (what follows is the same on every rank), or with
+    ``partial`` (each rank along ``axes`` uses a part of the whole) the sum
+    of every rank's gradient, this rank's slice of it: one reduce-scatter."""
     group = mesh.group(axes)
-    return x if group is None else _Gather.apply(x, group, dim)
+    if group is None:
+        return x
+    return (_GatherPartial if partial else _Gather).apply(x, group, dim)
 
 
 def split(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:

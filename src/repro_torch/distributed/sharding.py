@@ -20,11 +20,12 @@ gives a block the whole tensor it computes with where its compute is not
 partitioned like its storage: an all-gather of each sharded dim, whose
 backward keeps this rank's slice, and an all-reduce of the gradient over
 the axes where the use is partial (the batch axes the shard spans, where
-every rank saw other rows, and ``sum_over``).
+every rank saw other rows, and ``sum_over``); a dim gathered over axes of
+``sum_over`` takes both as one reduce-scatter.
 
 A served batch's rows and caches are placed by :func:`rows_spec` and
 :func:`cache_leaf_spec`, the rules of the reference's ``_cache_leaf_spec``
-(``repro/launch/specs.py``) with three deviations that follow from what the
+(``repro/launch/specs.py``) with four deviations that follow from what the
 port computes, each named where it applies (:data:`CACHE_DEVIATIONS`).
 """
 
@@ -220,12 +221,17 @@ def gather_params(model) -> Dict[str, torch.Tensor]:
 def use_full(t: torch.Tensor, spec: Spec, mesh, sum_over=()) -> torch.Tensor:
     """The whole tensor for a compute that needs it (see the module's doc):
     gathered over each sharded dim, the gradient summed over the batch axes
-    in ``spec`` and over ``sum_over``."""
+    in ``spec`` and over ``sum_over``; a dim gathered over axes of
+    ``sum_over`` alone takes that sum as one reduce-scatter."""
+    sum_over = mesh.axes_in_order(sum_over)
     for d, part in enumerate(spec):
         if part is not None:
-            t = gather(t, mesh, part, d)
+            partial = set(mesh.axes_in_order(part)) <= set(sum_over)
+            t = gather(t, mesh, part, d, partial=partial)
+            if partial:
+                sum_over = tuple(a for a in sum_over if a not in mesh.axes_in_order(part))
     partial = [a for a in spec_axes(spec) if a in mesh.batch_axes]
-    return copy_in(t, mesh, mesh.axes_in_order(partial + list(mesh.axes_in_order(sum_over))))
+    return copy_in(t, mesh, mesh.axes_in_order(partial + list(sum_over)))
 
 
 def use_params(p, specs: Dict[str, Spec], mesh, sum_over=()) -> Dict[str, torch.Tensor]:
@@ -238,15 +244,20 @@ def use_params(p, specs: Dict[str, Spec], mesh, sum_over=()) -> Dict[str, torch.
 # ---------------------------------------------------------------------------
 
 CACHE_DEVIATIONS = {  # name: where the port's cache placement leaves the reference's
-    "recurrent_whole": "(a) a Mamba or xLSTM state is cut only by its batch rows: those "
-                       "blocks run whole on every rank, so no state dim goes over model, "
-                       "nor over data when the rows are not cut",
+    "state_heads": "(a) a Mamba or mLSTM state is cut over model on its heads dim (1) where its "
+                   "block is head-parallel, else by its rows alone: the reference cuts dim 2 of "
+                   "a 4-D state (d_head, or C's value dim), dim 1 of a 3-D one and dim 1 over "
+                   "data where the rows are not cut, cuts no head-parallel recurrence reads in "
+                   "place",
     "kv_heads_read": "(b) head-parallel attention whose KV heads model does not divide: "
                      "the rank holds the KV heads its query heads read, as prefill "
                      "returns them; without head-parallel attention, every KV head",
     "pod_rows": "(c) the cache rows follow the token rows over the batch axes "
                 "(pod, data), as batch_spec places them, and are not cut where those "
                 "axes do not divide the batch",
+    "conv_channels_read": "(d) a head-parallel Mamba block's conv window holds the x channels "
+                          "of the rank's heads and all of B and C, as its prefill returns "
+                          "them; the spec leaves the channels uncut",
 }
 
 
@@ -272,20 +283,24 @@ def cache_leaf_spec(shape: Sequence[int], mesh, batch: int, role: str = "kv", *,
                     head_parallel: bool = True) -> Tuple[Spec, Tuple[str, ...]]:
     """``(spec, deviations)`` of one cache tensor of the global ``shape``.
 
-    ``role``: "kv" (a GQA ``k`` / ``v`` ``[B, L, KV, hd]``; ``head_parallel``
-    says whether its attention computes the rank's own query heads), "latent"
-    (MLA's ``c_kv`` / ``k_pe`` ``[B, L, r]``) or "state" (a recurrent
-    block's).  The reference's rules: the rows over the batch axes where
-    they divide them (:func:`rows_spec`); a 4-D cache's dim 2 (KV heads)
-    over ``model`` where it divides; a 3-D one's dim 1 (a latent's L) over
-    ``model`` where it divides; where the rows are not cut, dim 1 over
-    ``data`` where it divides (``data`` wins over ``model``).
-    ``deviations`` names each :data:`CACHE_DEVIATIONS` entry where the port
-    leaves those rules: (c) the rows placed over (pod, data); (a) a state's
-    dims past the rows left whole; (b) a KV cache's heads left uncut where
-    its attention is head-parallel and ``model`` does not divide them (the
-    leaf holds the heads its rank reads on dim 2) or where it is not
-    head-parallel and ``model`` would divide them.
+    ``role``: "kv" (a GQA ``k`` / ``v`` ``[B, L, KV, hd]``), "latent" (MLA's
+    ``c_kv`` / ``k_pe`` ``[B, L, r]``), "state" (a recurrent state whose dim
+    1, if it has one past the rows, is its heads: a Mamba ``h``, an mLSTM
+    ``C`` / ``n`` / ``m``, an sLSTM state ``[B, d]``) or "conv" (a Mamba
+    block's conv window ``[B, K - 1, channels]``).  ``head_parallel`` says
+    whether the block computes the rank's own heads (its attention's query
+    heads, its Mamba or mLSTM heads).  The reference's rules: the rows over
+    the batch axes where they divide them (:func:`rows_spec`); a 4-D cache's
+    dim 2 over ``model`` where it divides; a 3-D one's dim 1 over ``model``
+    where it divides; where the rows are not cut, dim 1 over ``data`` where
+    it divides (``data`` wins over ``model``).  ``deviations`` names each
+    :data:`CACHE_DEVIATIONS` entry where the port leaves those rules: (c)
+    the rows placed over (pod, data); (a) a state cut past its rows only on
+    its heads over ``model``; (b) a KV cache's heads left uncut where its
+    attention is head-parallel and ``model`` does not divide them (the leaf
+    holds the heads its rank reads on dim 2) or where it is not
+    head-parallel and ``model`` would divide them; (d) a head-parallel conv
+    window's channels (the leaf holds those its rank reads on dim 2).
     """
     dsz, msz = mesh.shape.get("data", 1), mesh.shape.get("model", 1)
     parts: List = [None] * len(shape)
@@ -301,21 +316,17 @@ def cache_leaf_spec(shape: Sequence[int], mesh, batch: int, role: str = "kv", *,
         parts[1] = "model"
     if parts[0] is None and len(shape) >= 3 and dsz > 1 and shape[1] % dsz == 0:
         parts[1] = "data"
-    if role == "state" and any(parts[1:]):
-        parts[1:] = [None] * (len(shape) - 1)
-        devs.append("recurrent_whole")
+    if role in ("state", "conv"):
+        past = [None] * (len(shape) - 1)
+        if role == "state" and head_parallel and msz > 1 and len(shape) > 1:
+            past[0] = "model"
+        if parts[1:] != past:
+            devs.append("state_heads")
+        parts[1:] = past
+        if role == "conv" and head_parallel and msz > 1:
+            devs.append("conv_channels_read")
     elif role == "kv" and msz > 1 and (not head_parallel or shape[2] % msz):
         if head_parallel or parts[2] == "model":
             devs.append("kv_heads_read")
         parts[2] = None
-    return _trim(parts), tuple(devs)
-    if role == "kv":
-        if head_parallel and msz > 1 and shape[2] % msz == 0:
-            parts[2] = "model"
-        elif (head_parallel and msz > 1) or (len(ref) > 2 and ref[2] == "model"):
-            devs.append("kv_heads_read")
-    elif msz > 1 and shape[1] % msz == 0:
-        parts[1] = "model"
-    if rows is None and dsz > 1 and shape[1] % dsz == 0:
-        parts[1] = "data"
     return _trim(parts), tuple(devs)

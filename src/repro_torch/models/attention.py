@@ -26,8 +26,14 @@ own heads where the KV heads divide too; else every rank gathers the whole
 K/V projections (their gradient summed over ``model``, as each rank uses
 them for its heads only) and takes the KV heads its query heads read, as
 for gemma3-1b's single KV head (:func:`kv_columns`; a decode takes them
-once a batch, with its caches, not at every step).  MLA, and heads that ``model`` does not
-divide, run whole on every rank from gathered weights.
+once a batch, with its caches, not at every step).  MLA is head-parallel
+the same way: ``w_uq`` (or ``w_q``), ``w_uk`` and ``w_uv`` column-parallel
+over the heads (their columns are contiguous a head), ``w_o`` row-parallel;
+its down-projections ``w_dkv`` / ``w_dq`` and their norms are replicated,
+so every rank computes the latent ``c_kv`` / ``k_pe`` (and the compressed
+query) whole, a named duplicate, with those weights' gradient summed over
+``model``.  Heads that ``model`` does not divide run whole on every rank
+from gathered weights.
 
 :func:`attention_decode` under a bound mesh takes the same heads, and the
 cache as the rank's shard (``cache_spec``, from ``Model.cache_specs``):
@@ -39,8 +45,13 @@ L / n, 0, L / n)`` slots (0 for a slice past it, a local layer's ring
 included), through ``ops.decode_attention_partial`` for GQA or the same
 partial softmax in plain torch for MLA (naive or absorbed); then one
 all-gather of every rank's ``(o, lse)`` over the axis and
-``combine_partials`` in rank order.  Every rank takes part in every exchange
-whatever ``pos`` is, so the ranks' schedules never depend on it.
+``combine_partials`` in rank order.  Head-parallel MLA over latents whose
+slots are cut over ``model`` gathers every head's query over ``model`` (the
+absorbed form's latent query), attends the rank's slots with every head,
+joins, and keeps the rank's heads for its ``w_uv`` / ``w_o`` rows; the
+naive form expands the rank's slots with the whole ``w_uk`` / ``w_uv``,
+taken once a batch (:func:`kv_columns`).  Every rank takes part in every
+exchange whatever ``pos`` is, so the ranks' schedules never depend on it.
 """
 
 from __future__ import annotations
@@ -280,11 +291,18 @@ def attention_apply(
     return out.reshape(B, S, -1) @ p["w_o"], cache
 
 
+_MLA_HEADS = ("w_q", "w_uq", "w_uk", "w_uv", "w_o")  # MLA's weights cut by the heads
+
+
 def head_parallel(cfg: ModelConfig, specs: Dict[str, tuple], mesh) -> bool:
     """Whether the rank computes its own query heads (see the module's doc)."""
     m = mesh.axis_size("model")
-    return (m > 1 and cfg.attn_kind != "mla" and cfg.n_heads % m == 0
-            and specs.get("w_q") == (None, "model") and specs.get("w_o") == ("model",))
+    if m == 1 or cfg.n_heads % m:
+        return False
+    cols = ("w_q",)
+    if cfg.attn_kind == "mla":
+        cols = ("w_uq" if cfg.mla_q_rank else "w_q", "w_uk", "w_uv")
+    return all(specs.get(w) == (None, "model") for w in cols) and specs.get("w_o") == ("model",)
 
 
 def kv_heads_read(cfg: ModelConfig, mesh) -> torch.Tensor:
@@ -299,14 +317,23 @@ def kv_heads_read(cfg: ModelConfig, mesh) -> torch.Tensor:
     return kv_of
 
 
-def kv_columns(cfg: ModelConfig, p, specs: Dict[str, tuple], mesh
+def kv_columns(cfg: ModelConfig, p, specs: Dict[str, tuple], mesh,
+               cache_spec: Optional[Dict[str, tuple]] = None
                ) -> Optional[Dict[str, torch.Tensor]]:
     """``{"w_k", "w_v"}``: the columns of the KV heads the rank's query heads
     read, gathered over ``model``, under head-parallel attention whose KV
     heads the rank's own shards do not hold (``model`` does not divide them,
-    or w_k / w_v are not cut over it); None elsewhere.  A decode takes them
-    once a batch, with its caches (``Model.init_caches``, ``prefill``)."""
+    or w_k / w_v are not cut over it); for MLA, ``{"w_uk", "w_uv"}`` whole
+    under a head-parallel naive decode of latents whose slots
+    (``cache_spec``) are cut over ``model``; None elsewhere.  A decode takes
+    them once a batch, with its caches (``Model.init_caches``, ``prefill``)."""
     m, hd = mesh.axis_size("model"), cfg.hd
+    if cfg.attn_kind == "mla":
+        spec = (cache_spec or {}).get("c_kv", ())
+        if (not head_parallel(cfg, specs, mesh) or cfg.mla_absorbed_decode
+                or len(spec) < 2 or spec[1] != "model"):
+            return None
+        return {w: use_full(p[w], specs.get(w, ()), mesh, "model") for w in ("w_uk", "w_uv")}
     if not head_parallel(cfg, specs, mesh) or (
             cfg.n_kv_heads % m == 0 and all(specs.get(w) == (None, "model")
                                             for w in ("w_k", "w_v"))):
@@ -320,7 +347,14 @@ def kv_columns(cfg: ModelConfig, p, specs: Dict[str, tuple], mesh
 def _local_heads(cfg: ModelConfig, p, specs, mesh, kv=None):
     """``(config, parameters)`` of the rank's query heads and the KV heads
     they read, under head-parallel attention; ``kv``: :func:`kv_columns`
-    taken before (else taken here where they are needed)."""
+    taken before (else taken here where they are needed).  MLA: the rank's
+    heads' cut weights as they lie, the rest whole, their gradient summed
+    over ``model``."""
+    if cfg.attn_kind == "mla":
+        H = cfg.n_heads // mesh.axis_size("model")
+        local = {k: v if k in _MLA_HEADS else use_full(v, specs.get(k, ()), mesh, "model")
+                 for k, v in p.items()}
+        return cfg.with_(n_heads=H, n_kv_heads=H, head_dim=cfg.hd), local
     kv = kv or kv_columns(cfg, p, specs, mesh) or {w: p[w] for w in ("w_k", "w_v")}
     local = {"w_q": p["w_q"], **kv, "w_o": p["w_o"]}
     return cfg.with_(n_heads=cfg.n_heads // mesh.axis_size("model"),
@@ -410,23 +444,34 @@ def _softmax(s: torch.Tensor, valid: torch.Tensor, axis):
 
 
 def _mla_decode(cfg: ModelConfig, p, q: torch.Tensor, cache, length: int, mesh=None,
-                axis=None) -> torch.Tensor:
+                axis=None, every: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
     """MLA attention of one query token over the latent cache's first
-    ``length`` slots: ``o [B, 1, H, hd]``.  With ``axis``, the cache is this
-    rank's slice of the slots, and the ranks' partial softmaxes are joined."""
-    B = q.shape[0]
-    hd, H = cfg.hd, cfg.n_heads
-    r, rd = cfg.mla_kv_rank, cfg.mla_rope_dim
+    ``length`` slots: ``o [B, 1, H, hd]`` of q's heads.  With ``axis``, the
+    cache is this rank's slice of the slots, and the ranks' partial
+    softmaxes are joined.  ``every`` (head-parallel, the slots cut over
+    ``model``; the naive form's whole ``w_uk`` / ``w_uv``, empty for the
+    absorbed one): q and ``p`` are the rank's heads', every head's query is
+    gathered over ``model`` to attend the rank's slots, and the rank's heads
+    are kept after the join."""
+    hd, r, rd = cfg.hd, cfg.mla_kv_rank, cfg.mla_rope_dim
     c_kv, k_pe = cache["c_kv"], cache["k_pe"]
-    S = c_kv.shape[1]
+    B, S = c_kv.shape[:2]
     valid = torch.arange(S, device=q.device) < length
+    heads = q.shape[2]
+
+    def gathered(t):  # every head's, on dim 2
+        return t if every is None else raw_all_gather(t, mesh, "model", dim=2)
+
+    def own(t):  # the rank's heads of every head's
+        return t if every is None else t.narrow(2, mesh.index("model") * heads, heads)
+
     if cfg.mla_absorbed_decode:
         # score and attend in latent space: w_uk folds into the query, w_uv
         # into the output, so the per-token K/V expansion never materialises
-        q_nope, q_pe = q[..., :hd], q[..., hd:]
-        w_uk = p["w_uk"].reshape(r, H, hd)
-        w_uv = p["w_uv"].reshape(r, H, hd)
-        q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)
+        q_nope, q_pe = q[..., :hd], gathered(q[..., hd:])
+        w_uk = p["w_uk"].reshape(r, heads, hd)
+        w_uv = p["w_uv"].reshape(r, heads, hd)
+        q_abs = gathered(torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk))
         s = (torch.einsum("bqhr,bsr->bhqs", q_abs.float(), c_kv.float())
              + torch.einsum("bqhp,bsp->bhqs", q_pe.float(), k_pe.float())
              ) * (1.0 / math.sqrt(hd + rd))
@@ -434,9 +479,12 @@ def _mla_decode(cfg: ModelConfig, p, q: torch.Tensor, cache, length: int, mesh=N
         o_lat = torch.einsum("bhqs,bsr->bqhr", w.to(c_kv.dtype).float(), c_kv.float())
         if axis is not None:
             o_lat = _join(o_lat[:, 0], lse[:, :, 0], mesh, axis)[:, None]
-        return torch.einsum("bqhr,rhd->bqhd", o_lat, w_uv.float()).to(q.dtype)
-    k_nope = (c_kv @ p["w_uk"]).reshape(B, S, H, hd)
-    v = (c_kv @ p["w_uv"]).reshape(B, S, H, hd)
+        return torch.einsum("bqhr,rhd->bqhd", own(o_lat), w_uv.float()).to(q.dtype)
+    q = gathered(q)
+    H = q.shape[2]
+    up = p if every is None else every
+    k_nope = (c_kv @ up["w_uk"]).reshape(B, S, H, hd)
+    v = (c_kv @ up["w_uv"]).reshape(B, S, H, hd)
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, rd)], dim=-1)
     qh = q * (1.0 / math.sqrt(q.shape[-1]))
     s = torch.einsum("bqhd,bshd->bhqs", qh.float(), k.float())
@@ -445,7 +493,7 @@ def _mla_decode(cfg: ModelConfig, p, q: torch.Tensor, cache, length: int, mesh=N
     o = torch.einsum("bhqs,bshd->bqhd", w.to(v.dtype).float(), v.float())
     if axis is not None:
         o = _join(o[:, 0], lse[:, :, 0], mesh, axis)[:, None]
-    return o.to(q.dtype)
+    return own(o).to(q.dtype)
 
 
 def attention_decode(
@@ -470,12 +518,14 @@ def attention_decode(
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     mla = cfg.attn_kind == "mla"
-    axis, parallel = None, False
+    axis, parallel, every = None, False, None
     if mesh is not None:
         specs = specs or {}
         spec = (cache_spec or {}).get("c_kv" if mla else "k", ())
         axis = spec[1] if len(spec) > 1 else None
         parallel = head_parallel(cfg, specs, mesh)
+        if parallel and mla and axis == "model":  # every head attends the rank's slots
+            every = kv or kv_columns(cfg, p, specs, mesh, cache_spec) or {}
         if parallel:
             cfg, p = _local_heads(cfg, p, specs, mesh, kv)
             x = copy_in(x, mesh, "model")
@@ -487,8 +537,9 @@ def attention_decode(
         slot, length = _slot_and_length(cache["c_kv"], pos, mesh, axis)
         _cache_write(cache["c_kv"], c_kv_new[:, 0], slot)
         _cache_write(cache["k_pe"], k_pe_new[:, 0], slot)
-        o = _mla_decode(cfg, p, q, cache, length, mesh, axis)
-        return o.reshape(B, 1, -1) @ p["w_o"], cache
+        o = _mla_decode(cfg, p, q, cache, length, mesh, axis, every)
+        out = o.reshape(B, 1, -1) @ p["w_o"]
+        return (reduce_out(out, mesh, "model") if parallel else out), cache
     slot, length = _slot_and_length(cache["k"], pos, mesh, axis)
     _cache_write(cache["k"], k_new[:, 0], slot)
     _cache_write(cache["v"], v_new[:, 0], slot)

@@ -27,24 +27,27 @@ rank's vocabulary slice, summed over ``model``) and head, and a
 vocab-parallel cross-entropy whose [B, S] statistics are summed over
 ``model``, so no rank holds [B, S, vocab] logits.  The loss is the whole
 batch's on every rank: each rank's gradients are its rows' part, for the
-train step to sum over the batch axes.  Mamba2, xLSTM and MLA blocks (and
-attention whose heads ``model`` does not divide) run whole on every rank
-from gathered weights (:meth:`Model.unpartitioned` lists them).
+train step to sum over the batch axes.  Mamba2 blocks, mLSTM cells and MLA
+attention compute the rank's heads where ``model`` divides them
+(``models/ssm.py``, ``models/xlstm.py``, ``models/attention.py``); sLSTM
+cells, and blocks whose heads ``model`` does not divide, run whole on every
+rank from gathered weights (:meth:`Model.unpartitioned` lists them).
 
 Serving runs under a mesh too.  A batch's rows are cut over the batch axes
 where they divide it, else every rank holds every row
 (``distributed.sharding.rows_spec``); :meth:`Model.cache_specs` places each
 cache tensor (``cache_leaf_spec``: rows, KV heads over ``model`` under
-head-parallel attention, MLA latents' slots over ``model``, and the slots
-over ``data`` where the rows are not cut).  :meth:`Model.init_caches`,
+head-parallel attention, MLA latents' slots over ``model``, the slots over
+``data`` where the rows are not cut, and a head-parallel block's recurrent
+state over ``model`` on its heads).  :meth:`Model.init_caches`,
 :meth:`Model.abstract_caches` and ``prefill`` give this rank's shards as a
 :class:`Caches` list that carries those specs and the ``w_k`` / ``w_v``
 columns its head-parallel attention reads (``attention.kv_columns``,
 gathered once for the batch), and ``decode_step`` reads them: each block decodes with its norms through ``_Block.norm``, its
 attention head-parallel and, over a cut cache, sequence-parallel
 (``models/attention.py``), its MLP and MoE as in ``forward`` (the MoE's
-expert-parallel gather path at decode), and the logits gathered over
-``model`` where the head is vocab-parallel.
+expert-parallel gather path at decode), its recurrence on its heads, and
+the logits gathered over ``model`` where the head is vocab-parallel.
 
 :meth:`Model.abstract` builds the model on the ``meta`` device: parameters
 with their shapes and dtypes and no data, the counterpart of the reference's
@@ -74,9 +77,9 @@ from .common import ModelConfig, ParamSpec, count_params, fill_, rms_norm
 from .mlp import col_parallel, mlp_apply, mlp_specs
 from .moe import moe_apply, moe_specs
 from .moe_ep import ep_applicable, ep_specs, moe_apply_ep
-from .ssm import init_ssm_state, mamba_apply, mamba_decode, mamba_specs
-from .xlstm import (init_mlstm_state, init_slstm_state, mlstm_apply, mlstm_decode, mlstm_specs,
-                    slstm_apply, slstm_decode, slstm_specs)
+from .ssm import init_ssm_state, mamba_apply, mamba_decode, mamba_head_parallel, mamba_specs
+from .xlstm import (init_mlstm_state, init_slstm_state, mlstm_apply, mlstm_decode,
+                    mlstm_head_parallel, mlstm_specs, slstm_apply, slstm_decode, slstm_specs)
 
 __all__ = ["Stage", "build_plan", "layer_blocks", "DenseBlock", "MoEBlock", "MambaBlock",
            "XLSTMBlock", "Model", "Caches", "param_specs", "init_caches", "cache_specs",
@@ -199,7 +202,8 @@ def decode_launches(cfg: ModelConfig) -> Dict[str, int]:
     return {"rmsnorm": rms, "decode_attention": att}
 
 
-_STATES = {"mamba": init_ssm_state, "xlstm_m": init_mlstm_state, "xlstm_s": init_slstm_state}
+_STATES = {"mamba": init_ssm_state, "xlstm_m": init_mlstm_state,
+           "xlstm_s": lambda cfg, batch, device, parts=1: init_slstm_state(cfg, batch, device)}
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device: torch.device) -> List:
@@ -225,17 +229,31 @@ class Caches(list):
         self.kv = kv
 
 
-def _cache_role(cfg: ModelConfig, block: str) -> str:
+def _cache_role(cfg: ModelConfig, block: str, name: str) -> str:
+    """The role of cache tensor ``name`` of a ``block`` entry in ``cache_leaf_spec``."""
     if block not in ("dense", "moe"):
-        return "state"
+        return "conv" if name == "conv" else "state"
     return "latent" if cfg.attn_kind == "mla" else "kv"
 
 
-def _attn_head_parallel(cfg: ModelConfig, mesh, shardings: Dict[str, tuple]) -> bool:
-    """Whether the attention blocks (all alike) compute their own query heads."""
-    attn = {k.rsplit(".", 1)[1]: _effective(v, mesh) for k, v in shardings.items()
-            if ".attn." in k}
-    return head_parallel(cfg, attn, mesh)
+# each block kind's head-parallel rule, and the part of the block whose specs
+# it reads: attention's query heads, a Mamba2 mixer's heads, an mLSTM cell's
+# (an sLSTM cell always runs whole: models/xlstm.py)
+_HEAD_PARALLEL = {"dense": ("attn", head_parallel), "moe": ("attn", head_parallel),
+                  "mamba": ("mamba", mamba_head_parallel), "xlstm_m": ("cell", mlstm_head_parallel)}
+
+
+def _head_parallel(cfg: ModelConfig, mesh, shardings: Dict[str, tuple], block: str) -> bool:
+    """Whether the entries of kind ``block`` (all alike) compute their own
+    heads under ``shardings`` (:data:`_HEAD_PARALLEL`)."""
+    if block not in _HEAD_PARALLEL:
+        return False
+    part, parallel = _HEAD_PARALLEL[block]
+    own = [b for b, shared in layer_blocks(cfg) if not shared]
+    prefix = f"blocks.{own.index(block)}.{part}." if block in own else f"shared.{part}."
+    specs = {k[len(prefix):]: _effective(v, mesh) for k, v in shardings.items()
+             if k.startswith(prefix)}
+    return parallel(cfg, specs, mesh)
 
 
 def cache_specs(cfg: ModelConfig, mesh, batch: int, max_len: int,
@@ -245,17 +263,19 @@ def cache_specs(cfg: ModelConfig, mesh, batch: int, max_len: int,
     batch of ``batch`` rows and ``max_len`` slots (``cache_leaf_spec``; the
     attention's parameter specs, ``shardings`` or the default rules', say
     whether it is head-parallel), and each deviation from the reference's
-    placement once, named (``CACHE_DEVIATIONS``)."""
+    placement once, named (``CACHE_DEVIATIONS``).  Each entry's blocks
+    (all of a kind alike) say whether they are head-parallel."""
     if shardings is None:
         shardings, _ = param_shardings(param_specs(cfg), mesh)
-    parallel = _attn_head_parallel(cfg, mesh, shardings)
+    plan = layer_blocks(cfg)
+    parallel = {block: _head_parallel(cfg, mesh, shardings, block) for block, _ in plan}
     specs, log = [], {}
-    for (block, _), entry in zip(layer_blocks(cfg),
-                                 init_caches(cfg, batch, max_len, torch.device("meta"))):
-        role = _cache_role(cfg, block)
+    for (block, _), entry in zip(plan, init_caches(cfg, batch, max_len, torch.device("meta"))):
         specs.append({})
         for name, t in entry.items():
-            spec, devs = cache_leaf_spec(t.shape, mesh, batch, role, head_parallel=parallel)
+            role = _cache_role(cfg, block, name)
+            spec, devs = cache_leaf_spec(t.shape, mesh, batch, role,
+                                         head_parallel=parallel[block])
             specs[-1][name] = spec
             log.update({(name, d): f"cache {name} ({role}) [{d}]: {CACHE_DEVIATIONS[d]}"
                         for d in devs})
@@ -322,6 +342,22 @@ class _Block(nn.Module):
         """The parts this block computes whole on every rank of ``model``."""
         return []
 
+    def head_parallel(self) -> bool:
+        """Whether it computes the rank's heads (its kind's rule in
+        :data:`_HEAD_PARALLEL`; never without a mesh)."""
+        if self.mesh is None or self.kind not in _HEAD_PARALLEL:
+            return False
+        part, parallel = _HEAD_PARALLEL[self.kind]
+        return parallel(self.cfg, self.sub_specs(part), self.mesh)
+
+    def own_or_whole(self, name: str):
+        """``(parameters, mesh)`` of part ``name`` for its family's functions:
+        the rank's shards and the mesh where the block is head-parallel, else
+        the whole parameters (:meth:`part`) and None."""
+        if self.head_parallel():
+            return getattr(self, name), self.mesh
+        return self.part(name), None
+
 
 class DenseBlock(_Block):
     """Pre-norm attention + gated MLP, both residual."""
@@ -344,7 +380,7 @@ class DenseBlock(_Block):
         return x + y, aux, kv
 
     def unpartitioned(self) -> List[str]:
-        out = [] if head_parallel(self.cfg, self.sub_specs("attn"), self.mesh) else ["attn"]
+        out = [] if self.head_parallel() else ["attn"]
         return out + ([] if col_parallel(self.sub_specs("mlp")) else ["mlp"])
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int,
@@ -391,50 +427,60 @@ class MoEBlock(DenseBlock):
         return all(specs[k] == _effective(v, self.mesh) for k, v in want.items() if v)
 
     def unpartitioned(self) -> List[str]:
-        attn = [] if head_parallel(self.cfg, self.sub_specs("attn"), self.mesh) else ["attn"]
+        attn = [] if self.head_parallel() else ["attn"]
         return attn + ([] if self._expert_parallel() else ["moe"])
 
 
 class MambaBlock(_Block):
-    """Pre-norm Mamba2 mixer, residual; its cache is the SSM state."""
+    """Pre-norm Mamba2 mixer, residual; its cache is the SSM state (under a
+    mesh, the rank's heads' where it is head-parallel: ``models/ssm.py``)."""
 
     kind = "mamba"
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, layer_idx: int):
         """Full causal pass: ``(x, aux losses, state after the last token)``."""
-        y, state = mamba_apply(self.cfg, self.part("mamba"), self.norm("ln1", x),
-                               return_state=True)
+        p, mesh = self.own_or_whole("mamba")
+        y, state = mamba_apply(self.cfg, p, self.norm("ln1", x), return_state=True, mesh=mesh)
         return x + y, _zero_aux(x.device), state
 
     def unpartitioned(self) -> List[str]:
-        return ["mamba"]
+        return [] if self.head_parallel() else ["mamba"]
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int,
                cache_spec: Optional[Dict[str, tuple]] = None, kv=None):
-        y, cache = mamba_decode(self.cfg, self.part("mamba"), self.norm("ln1", x), cache)
+        p, mesh = self.own_or_whole("mamba")
+        y, cache = mamba_decode(self.cfg, p, self.norm("ln1", x), cache, mesh=mesh)
         return x + y, cache
-
-
-_XLSTM = {"xlstm_m": (mlstm_apply, mlstm_decode), "xlstm_s": (slstm_apply, slstm_decode)}
 
 
 class XLSTMBlock(_Block):
     """Pre-norm mLSTM (``xlstm_m``) or sLSTM (``xlstm_s``) cell, residual; its
-    cache is the cell's recurrent state."""
+    cache is the cell's recurrent state (under a mesh, an mLSTM cell's
+    rank's heads' where it is head-parallel: ``models/xlstm.py``)."""
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, layer_idx: int):
         """Full causal pass: ``(x, aux losses, state after the last token)``."""
-        apply = _XLSTM[self.kind][0]
-        y, state = apply(self.cfg, self.part("cell"), self.norm("ln1", x), return_state=True)
+        h, (p, mesh) = self.norm("ln1", x), self.own_or_whole("cell")
+        if self.kind == "xlstm_m":
+            y, state = mlstm_apply(self.cfg, p, h, return_state=True, mesh=mesh)
+        else:
+            y, state = slstm_apply(self.cfg, p, h, return_state=True)
         return x + y, _zero_aux(x.device), state
 
     def unpartitioned(self) -> List[str]:
-        return ["cell"]
+        """The cell where it runs whole: an sLSTM cell always (its dense
+        recurrent ``r_zifo`` would take an exchange over ``model`` at every
+        step of the scan if its columns were cut), an mLSTM cell whose heads
+        ``model`` does not divide."""
+        return [] if self.head_parallel() else ["cell"]
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int,
                cache_spec: Optional[Dict[str, tuple]] = None, kv=None):
-        decode = _XLSTM[self.kind][1]
-        y, cache = decode(self.cfg, self.part("cell"), self.norm("ln1", x), cache)
+        h, (p, mesh) = self.norm("ln1", x), self.own_or_whole("cell")
+        if self.kind == "xlstm_m":
+            y, cache = mlstm_decode(self.cfg, p, h, cache, mesh=mesh)
+        else:
+            y, cache = slstm_decode(self.cfg, p, h, cache)
         return x + y, cache
 
 
@@ -550,8 +596,9 @@ class Model(nn.Module):
 
     def unpartitioned(self) -> List[str]:
         """The parts of blocks that run whole on every rank of ``model``
-        (``blocks.3.mamba``, ``shared.attn``, ...); none without a mesh or
-        where ``model`` has one rank."""
+        (``blocks.3.cell``, ``shared.attn``, ...): sLSTM cells, and blocks
+        whose heads ``model`` does not divide; none without a mesh or where
+        ``model`` has one rank."""
         if self.mesh is None or self.mesh.axis_size("model") == 1:
             return []
         named = [(f"blocks.{i}", b) for i, b in enumerate(self.blocks)]
@@ -728,41 +775,40 @@ class Model(nn.Module):
         """Zeroed caches on the model's device (``device``: another, such as
         ``meta``) for a batch of ``batch`` rows and ``max_len`` slots
         (:func:`init_caches`); under a mesh this rank's shards, placed as
-        :meth:`cache_specs` says, with the rank's w_k / w_v columns its
-        decode reads (:class:`Caches`), gathered here once for the batch."""
+        :meth:`cache_specs` says, with the weight columns its decode reads
+        (:class:`Caches`), gathered here once for the batch."""
         cfg = self.cfg
         device = self.device if device is None else torch.device(device)
         specs = self.cache_specs(batch, max_len)
         if specs is None:
             return Caches(init_caches(cfg, batch, max_len, device))
-        read = None  # the KV heads a rank holds where it holds those it reads
-        if _attn_head_parallel(cfg, self.mesh, self.shardings):
-            read = kv_heads_read(cfg, self.mesh).numel()
         out = []
         whole = init_caches(cfg, batch, max_len, torch.device("meta"))
-        for (block, _), entry, spec in zip(layer_blocks(cfg), whole, specs):
+        for block, entry, spec in zip(self.entries, whole, specs):
             shapes = {name: list(shard_tensor(t, spec[name], self.mesh).shape)
                       for name, t in entry.items()}
-            role = _cache_role(cfg, block)
-            if role == "state":  # its rows, as the block's own init makes them
-                out.append(_STATES[block](cfg, next(iter(shapes.values()))[0], device))
+            if not isinstance(block, DenseBlock):  # as the block's own init makes it
+                parts = self.mesh.axis_size("model") if block.head_parallel() else 1
+                out.append(_STATES[block.kind](cfg, next(iter(shapes.values()))[0], device,
+                                               parts))
                 continue
-            for name, shape in shapes.items():
-                if role == "kv" and read is not None and len(spec[name]) < 3:
-                    shape[2] = read
+            # the KV heads a rank holds where it holds those it reads
+            if cfg.attn_kind != "mla" and len(spec["k"]) < 3 and block.head_parallel():
+                for shape in shapes.values():
+                    shape[2] = kv_heads_read(cfg, self.mesh).numel()
             out.append({name: torch.zeros(shape, dtype=entry[name].dtype, device=device)
                         for name, shape in shapes.items()})
-        return Caches(out, specs, self._kv_columns())
+        return Caches(out, specs, self._kv_columns(specs))
 
     @torch.no_grad()
-    def _kv_columns(self) -> List[Optional[Dict[str, torch.Tensor]]]:
-        """Each entry's :func:`~.attention.kv_columns` on the model's mesh
-        (a shared block's taken once)."""
+    def _kv_columns(self, specs: List[Dict[str, tuple]]) -> List[Optional[Dict]]:
+        """Each entry's :func:`~.attention.kv_columns` on the model's mesh,
+        for caches placed as ``specs`` (a shared block's taken once)."""
         taken = {}
-        for block in self.entries:
+        for block, spec in zip(self.entries, specs):
             if isinstance(block, DenseBlock) and id(block) not in taken:
                 taken[id(block)] = kv_columns(self.cfg, block.attn, block.sub_specs("attn"),
-                                              self.mesh)
+                                              self.mesh, spec)
         return [taken.get(id(block)) for block in self.entries]
 
     def abstract_caches(self, batch: int, max_len: int) -> "Caches":
@@ -795,7 +841,7 @@ class Model(nn.Module):
             raise ValueError(f"max_len {L} is shorter than the prompt's {S} tokens")
         caches = [self._prefill_cache(kv, li, S, L) if isinstance(block, DenseBlock) else kv
                   for li, (block, kv) in enumerate(zip(self.entries, kvs))]
-        logits = self._head(x[:, -1:, :])[:, 0, :]
+        logits = self._head(x[:, -1:, :].contiguous())[:, 0, :]  # the kernels take it so
         if self.mesh is None:
             return logits, Caches(caches)
         if self._vocab_slice() is not None:
@@ -803,12 +849,14 @@ class Model(nn.Module):
         if batch is None:
             batch = B * self.mesh.axis_size(self.mesh.batch_axes)
         specs = self.cache_specs(batch, L)
-        for entry, spec in zip(caches, specs):  # the rows and heads are the rank's already
-            for name, t in entry.items():
+        for block, entry, spec in zip(self.entries, caches, specs):
+            if not isinstance(block, DenseBlock):  # a state: the rank's rows and heads
+                continue
+            for name, t in entry.items():  # the rows and heads are the rank's already
                 cut = spec[name][1] if len(spec[name]) > 1 else None
                 if cut is not None:
                     entry[name] = shard_tensor(t, (None, cut), self.mesh).clone()
-        return logits, Caches(caches, specs, self._kv_columns())
+        return logits, Caches(caches, specs, self._kv_columns(specs))
 
     def _prefill_cache(self, kv, layer_idx: int, S: int, L: int) -> Dict[str, torch.Tensor]:
         """One attention layer's cache of ``L`` slots (a ring of ``min(window,

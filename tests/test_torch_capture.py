@@ -43,7 +43,7 @@ from repro_torch.core.interconnect import H100_SXM, V5E
 from repro_torch.core.predictor import predict_step, roofline
 from repro_torch.core.topology import Topology
 from repro_torch.distributed import collectives, run_world
-from repro_torch.distributed.sharding import param_shardings, spec_axes
+from repro_torch.distributed.sharding import param_shardings, spec_axes, use_full
 from repro_torch.distributed.zero import zero1_from_params
 from repro_torch.launch.dryrun import trace_cell
 from repro_torch.launch.mesh import Mesh
@@ -216,6 +216,27 @@ def test_exchanges_over_a_capture_group_record_and_exchange_nothing():
         with capture_collectives() as inner:
             collectives._all_reduce(t, g)
     assert outer == inner and len(inner) == 1
+
+
+@pytest.mark.parametrize("sum_over", [("model",), ()], ids=["partial", "whole"])
+def test_a_gathered_weight_used_in_part_takes_one_reduce_scatter(sum_over):
+    """``use_full`` of a weight cut over ``model`` whose every rank uses a
+    part of it (``sum_over``): its gradient is summed over ``model`` and
+    this rank's slice kept, as one reduce-scatter of the whole gradient
+    (the capture group keeps the rank's chunk of its own); used whole by
+    every rank, the gradient is the rank's slice with no exchange."""
+    mesh = Mesh({"data": 2, "model": 2}).bind_abstract(3)
+    g = CaptureGroup(("model",), 4, 1)
+    assert collectives._reduce_scatter(torch.arange(8.).reshape(2, 4), g, 1).tolist() == \
+        [[1.], [5.]]
+    w = torch.randn(3, 4, requires_grad=True)
+    with capture_collectives() as ops:
+        full = use_full(w, (None, "model"), mesh, sum_over)
+        (full * torch.arange(8.)).sum().backward()
+    assert full.shape == (3, 8) and torch.equal(w.grad, torch.arange(4., 8.).expand(3, 4))
+    kinds = [(o.kind, o.operand_bytes, o.result_bytes, o.axes) for o in ops]
+    assert kinds[0] == ("all-gather", 48, 96, ("model",))
+    assert kinds[1:] == ([("reduce-scatter", 96, 48, ("model",))] if sum_over else [])
 
 
 def _trace_ops(cfg, dims, rank):

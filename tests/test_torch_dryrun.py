@@ -312,3 +312,124 @@ def test_decode_takes_the_kv_columns_once_a_batch():
     assert len(gathers) == 1 and "over model" in gathers[0].line
     with pytest.raises(ValueError, match="K/V columns"):
         model.decode_step(Caches(caches, caches.specs), tokens, 23)
+
+
+# the blocks that compute their heads' share on a mesh: (arch, block kind)
+PARTITIONED = [("zamba2-2.7b", "mamba"), ("xlstm-125m", "xlstm_m"), ("minicpm3-4b", "dense"),
+               ("kimi-k2-1t-mla", "dense")]
+
+
+def _duplicates(cfg, kind: str, tokens: int, train: bool) -> int:
+    """One device's dot FLOPs of the products every ``model`` rank computes
+    whole (their forward, and in training the input's and the weight's
+    gradient): in the full pass a Mamba block's B and C columns of ``w_in``
+    and an mLSTM cell's x_m; at decode, where each rank projects on its own
+    columns, only the conv window's B and C channels; MLA's latent and
+    compressed query."""
+    d, T = cfg.d_model, tokens
+    if kind == "mamba":
+        f = 2 * T * d * 2 * cfg.ssm_state if train else 2 * T * cfg.ssm_conv * 2 * cfg.ssm_state
+    elif kind == "xlstm_m":
+        f = 2 * T * d * d if train else 0
+    else:
+        f = 2 * T * d * (cfg.mla_kv_rank + cfg.mla_rope_dim + cfg.mla_q_rank)
+    return 3 * f if train else f
+
+
+def _block_dot_flops(cfg, kind: str, rows: int, S: int, train: bool, mesh=None,
+                     rank: int = 0) -> int:
+    """Dot FLOPs of the first ``kind`` block on ``rows`` rows: its forward and
+    backward on S tokens (``train``), or one decode step over a cache of S
+    slots at its last slot; on ``mesh``'s ``rank`` (abstract) or one device."""
+    model = Model.abstract(cfg)
+    if mesh is not None:
+        shard_params(model, mesh.bind_abstract(rank))
+    li = next(i for i, b in enumerate(model.entries) if b.kind == kind)
+    block = model.entries[li]
+    x = torch.empty(rows, 1 if not train else S, cfg.d_model, dtype=cfg.param_dtype,
+                    device="meta", requires_grad=train)
+    if train:
+        model.requires_grad_(True)
+        positions = torch.zeros(rows, S, dtype=torch.int32, device="meta")
+        with count_cost() as cost:
+            y, _, _ = block(x, positions, li)
+            y.float().sum().backward()
+        return cost.dot_flops
+    batch = rows * (1 if mesh is None else mesh.shape["data"])
+    caches = model.abstract_caches(batch, S)
+    specs = caches.specs[li] if caches.specs else None
+    kv = caches.kv[li] if caches.kv else None
+    with count_cost() as cost:
+        block.decode(x, caches[li], S - 1, specs, kv)
+    return cost.dot_flops
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "decode"])
+@pytest.mark.parametrize("arch,kind", PARTITIONED)
+def test_partitioned_products_are_each_ranks_share(arch, kind, train):
+    """On an abstract 2x2 mesh, a head-parallel block's dot FLOPs on a rank's
+    rows are exactly half the one-device count on those rows, but for the
+    named duplicates, which count whole (FLOPs depend on shapes alone, so
+    the count is exact).  Reduced configs: their heads divide over 2."""
+    cfg = reduced(get_config(arch))
+    rows, S = 2, 32
+    one = _block_dot_flops(cfg, kind, rows, S, train)
+    dup = _duplicates(cfg, kind, rows * (S if train else 1), train)
+    mesh = make_mesh_by_name("2x2")
+    for rank in (0, 3):
+        got = _block_dot_flops(cfg, kind, rows, S, train, mesh, rank)
+        assert got == (one - dup) // 2 + dup, (got, one, dup)
+
+
+@pytest.mark.parametrize("arch,kind", PARTITIONED[:2])
+def test_a_recurrent_decode_step_moves_activations_not_weights(arch, kind):
+    """On an abstract 2x2 rank, a head-parallel Mamba block or mLSTM cell
+    decodes a token from its own weight columns: one all-gather over
+    ``model`` of its rows' projection on them (and a Mamba block's own
+    ``conv_w`` columns), then the output's sum; no weight is gathered and
+    the caches carry no columns for it."""
+    from repro_torch.core.capture import capture_collectives
+
+    cfg = reduced(get_config(arch))
+    model = Model.abstract(cfg)
+    shard_params(model, make_mesh_by_name("2x2").bind_abstract(1))
+    li = next(i for i, b in enumerate(model.entries) if b.kind == kind)
+    block, caches = model.entries[li], model.abstract_caches(4, 16)
+    assert block.head_parallel() and caches.kv[li] is None
+    x = torch.empty(2, 1, cfg.d_model, dtype=cfg.param_dtype, device="meta")
+    with capture_collectives() as ops:
+        block.decode(x, caches[li], 15, caches.specs[li], caches.kv[li])
+    size = cfg.param_dtype.itemsize
+    if kind == "mamba":
+        d_inner, ds = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+        proj = 2 * d_inner + 2 * ds + max(1, d_inner // 64)  # z | x | B | C | dt
+        sent = 2 * proj // 2 + cfg.ssm_conv * (d_inner + 2 * ds) // 2
+    else:
+        sent = 2 * 2 * cfg.d_model // 2
+    assert [(o.kind, o.operand_bytes, o.axes) for o in ops] == [
+        ("all-gather", sent * size, ("model",)),
+        ("all-reduce", 2 * cfg.d_model * size, ("model",))]
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-125m"])
+def test_recurrent_states_are_each_ranks_share(arch):
+    """A head-parallel block's state on a 2x2 rank: its rows (B 4 over data)
+    and half its heads; a Mamba conv window the x channels of those heads
+    and all of B and C; an sLSTM state its rows alone."""
+    cfg = reduced(get_config(arch))
+    model = Model.abstract(cfg)
+    shard_params(model, make_mesh_by_name("2x2").bind_abstract(1))
+    caches = model.abstract_caches(4, 64)
+    one = Model.abstract(cfg).abstract_caches(4, 64)
+    for block, mine, full in zip(model.entries, caches, one):
+        for name, t in mine.items():
+            rows_bytes = full[name].numel() * full[name].element_size() // 2
+            got = t.numel() * t.element_size()
+            if block.kind == "xlstm_s":
+                assert got == rows_bytes, name
+            elif name == "conv":
+                d_inner, ds = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+                assert t.shape[2] == d_inner // 2 + 2 * ds
+                assert got == rows_bytes * (d_inner // 2 + 2 * ds) // (d_inner + 2 * ds)
+            elif block.kind in ("mamba", "xlstm_m"):
+                assert got * 2 == rows_bytes, name

@@ -191,3 +191,23 @@ def test_params_from_jax_refuses_a_tree_that_does_not_fit(fault):
         tree["final_norm"] = np.zeros(tcfg.d_model + 1, np.float32)
     with pytest.raises(ValueError, match=fault):
         params_from_jax(tree, tcfg)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "minicpm3-4b", "zamba2-2.7b"])
+def test_prefill_hands_the_norm_kernel_contiguous_rows(arch, monkeypatch):
+    """``prefill`` of several rows hands every norm a contiguous ``x`` (the
+    card's kernel refuses any other: the last token's rows of [B, S, d] are
+    a strided view until copied)."""
+    from repro_torch.kernels import ops
+
+    plain, seen = ops.rmsnorm, []
+
+    def checking(x, gamma, eps=1e-6):
+        seen.append(x.is_contiguous())
+        return plain(x, gamma, eps)
+
+    monkeypatch.setattr(ops, "rmsnorm", checking)
+    cfg = reduced(get_config(arch)).with_(param_dtype=torch.float32)
+    model = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    model.prefill(torch.zeros(3, 8, dtype=torch.int64), max_len=12)
+    assert seen and all(seen)

@@ -3,9 +3,9 @@
 against the port's one-rank model on the same weights and the reference's
 unsharded ``decode_step``.
 
-The reference runs once, in a subprocess: ``Model.init(PRNGKey(0))`` of the
-reduced gemma3-1b, olmoe-1b-7b, minicpm3-4b and zamba2-2.7b in float32, and
-for gemma3-1b and olmoe-1b-7b its jitted ``decode_step`` over a prompt of 6
+The reference runs once, in a subprocess: ``Model.init(PRNGKey(0))`` of
+each variant's reduced config in float32, and for gemma3-1b, olmoe-1b-7b,
+zamba2-2.7b and xlstm-125m its jitted ``decode_step`` over a prompt of 6
 tokens and 4 greedy ones (B 4), as the engine steps.  Its sharded decode is
 not run: it hits jax 0.9's ``ShardingTypeError`` (``ROADMAP.md``, the
 reference's 7 failing tests).  Every port model takes those weights through
@@ -26,8 +26,13 @@ The variants:
   the two data ranks, the second starting with an empty slice (and after
   the prompt's prefill holding 2 of its 8 slots);
 - olmoe-1b-7b: the expert-parallel MoE's gather path;
-- minicpm3-4b, naive and absorbed: MLA latents' slots cut over ``model``;
-- zamba2-2.7b: Mamba2 whole on every rank, the shared attention block.
+- minicpm3-4b, naive and absorbed: MLA head-parallel, its latents' slots
+  cut over ``model`` (every head's query gathered to attend the rank's
+  slots, the rank's heads kept after the join);
+- zamba2-2.7b: Mamba2 head-parallel on (2, 2) (2 heads), whole on every
+  rank of (1, 4), the shared attention block head-parallel; at d_model 128
+  (4 heads) head-parallel on both meshes, its states the rank's heads';
+- xlstm-125m: the mLSTM cells head-parallel, the sLSTM cell whole.
 
 Bounds, float32: the logits within 1e-5 of the one-rank model's at every
 step (prefill, decode and every engine step), the one-rank model's prefill
@@ -35,8 +40,9 @@ and decode steps within 1e-5 of its engine's token-by-token steps; greedy
 tokens and the engine's
 outputs and stats equal; each rank's executed schedule of a decode step
 equal, op for op, to ``trace_cell``'s abstract capture of that rank; on
-(2, 2) the sharded gemma3-1b and olmoe-1b-7b engines' logits within 3e-5 of
-the reference's ``decode_step`` at every step and their tokens equal.  This
+(2, 2) the sharded gemma3-1b, olmoe-1b-7b, zamba2-2.7b and xlstm-125m
+engines' logits within 3e-5 of the reference's ``decode_step`` at every step
+and their tokens equal.  This
 file imports no JAX: the spawned ranks import it.
 """
 
@@ -71,8 +77,11 @@ VARIANTS = {  # name: (arch, batch, prompt tokens, new tokens, absorbed MLA deco
     "minicpm3-4b": ("minicpm3-4b", 4, 8, 4, False),
     "minicpm3-4b-absorbed": ("minicpm3-4b", 4, 8, 4, True),
     "zamba2-2.7b": ("zamba2-2.7b", 4, 6, 4, False),
+    "zamba2-2.7b-d128": ("zamba2-2.7b", 4, 6, 4, False),
+    "xlstm-125m": ("xlstm-125m", 4, 6, 4, False),
 }
-REFERENCE_DECODE = ("gemma3-1b", "olmoe-1b-7b")
+WIDER = {"zamba2-2.7b-d128": {"d_model": 128}}  # config overrides of a variant
+REFERENCE_DECODE = ("gemma3-1b", "olmoe-1b-7b", "zamba2-2.7b", "xlstm-125m")
 TOL, REF_TOL = 1e-5, 3e-5
 
 _REFERENCE = """
@@ -82,10 +91,10 @@ import jax, jax.numpy as jnp
 from repro.configs import get_config, reduced
 from repro.models import Model
 
-prompts, decode = pickle.load(open(sys.argv[2], "rb"))
+prompts, decode, configs = pickle.load(open(sys.argv[2], "rb"))
 out = {}
-for arch in ("gemma3-1b", "olmoe-1b-7b", "minicpm3-4b", "zamba2-2.7b"):
-    model = Model(reduced(get_config(arch)).with_(param_dtype=jnp.float32))
+for arch, (name, kw) in configs.items():
+    model = Model(reduced(get_config(name)).with_(param_dtype=jnp.float32, **kw))
     params = model.init(jax.random.PRNGKey(0))
     out[arch] = {"params": jax.tree.map(np.asarray, params)}
     if arch in decode:
@@ -105,9 +114,16 @@ pickle.dump(out, open(sys.argv[1], "wb"))
 """
 
 
-def _cfg(arch: str, absorbed: bool):
+def _cfg(name: str):
+    """A variant's config: its reduced arch in float32."""
+    arch, absorbed = VARIANTS[name][0], VARIANTS[name][4]
     return reduced(get_config(arch)).with_(param_dtype=torch.float32,
-                                           mla_absorbed_decode=absorbed)
+                                           mla_absorbed_decode=absorbed, **WIDER.get(name, {}))
+
+
+def _weights(name: str) -> str:
+    """The reference's weights a variant takes (its arch's, or its own width's)."""
+    return name if name in WIDER else VARIANTS[name][0]
 
 
 def _prompts() -> dict:
@@ -152,11 +168,12 @@ def _rank_job(rank: int, world: int, dims, reference, prompts) -> dict:
     torch.set_num_threads(1)
     mesh = Mesh({"data": dims[0], "model": dims[1]}).bind()
     out = {}
-    for name, (arch, B, P, n_new, absorbed) in VARIANTS.items():
-        cfg = _cfg(arch, absorbed)
+    for name, (_, B, P, n_new, _) in VARIANTS.items():
+        cfg = _cfg(name)
         model = Model(cfg, device="cpu", mesh=mesh)
-        model.load_state_dict(params_from_jax(reference[arch]["params"], cfg, mesh))
+        model.load_state_dict(params_from_jax(reference[_weights(name)]["params"], cfg, mesh))
         out[name] = _serve(model, prompts[name], n_new, mesh)
+        out[name]["unpartitioned"] = model.unpartitioned()
     return out
 
 
@@ -169,9 +186,10 @@ def prompts():
 def reference(tmp_path_factory, prompts):
     tmp = tmp_path_factory.mktemp("sharded_serve")
     path, inputs = tmp / "reference.pkl", tmp / "inputs.pkl"
+    configs = {_weights(name): (VARIANTS[name][0], WIDER.get(name, {})) for name in VARIANTS}
     with open(inputs, "wb") as f:
         pickle.dump(({a: prompts[a] for a in REFERENCE_DECODE},
-                     {a: VARIANTS[a][3] for a in REFERENCE_DECODE}), f)
+                     {a: VARIANTS[a][3] for a in REFERENCE_DECODE}, configs), f)
     env = {**os.environ, "JAX_PLATFORMS": "cpu",
            "PYTHONPATH": os.pathsep.join([str(SRC), os.environ.get("PYTHONPATH", "")])}
     run = subprocess.run([sys.executable, "-c", _REFERENCE, str(path), str(inputs)], env=env,
@@ -185,10 +203,10 @@ def reference(tmp_path_factory, prompts):
 def single(reference, prompts):
     """The one-rank port model of each variant on the reference's weights."""
     out = {}
-    for name, (arch, _, _, n_new, absorbed) in VARIANTS.items():
-        cfg = _cfg(arch, absorbed)
+    for name, (_, _, _, n_new, _) in VARIANTS.items():
+        cfg = _cfg(name)
         model = Model(cfg, device="cpu")
-        model.load_state_dict(params_from_jax(reference[arch]["params"], cfg))
+        model.load_state_dict(params_from_jax(reference[_weights(name)]["params"], cfg))
         out[name] = _serve(model, prompts[name], n_new)
     return out
 
@@ -272,12 +290,12 @@ def test_decode_schedule_is_the_abstract_capture(world, name):
     capture of that rank (``meta`` tensors, no world) at the same batch and
     cache slots."""
     dims, ranks = world
-    arch, B, P, n_new, absorbed = VARIANTS[name]
+    _, B, P, n_new, _ = VARIANTS[name]
     mesh = Mesh({"data": dims[0], "model": dims[1]})
     shape = ShapeSpec("serve", P + n_new, B, "decode")
     for rank, got in enumerate(ranks):
         executed = [CollectiveOp(**{**d, "axes": tuple(d["axes"])}) for d in got[name]["ops"]]
-        abstract = trace_cell(_cfg(arch, absorbed), shape, mesh, rank)
+        abstract = trace_cell(_cfg(name), shape, mesh, rank)
         assert executed == abstract["ops"] and executed, (rank, len(executed))
         assert abstract["cost"].kernel_calls.get("rmsnorm", 0) > 0
 
@@ -285,8 +303,11 @@ def test_decode_schedule_is_the_abstract_capture(world, name):
 def test_the_placements_each_variant_takes(world):
     """The caches' specs: rows over data at B 4 (2, 2); at B 1 on (2, 2) the
     slots of every KV cache over data (sequence-parallel), on (1, 4) whole;
-    olmoe's KV heads over model; MLA latents' slots over model; zamba2's
-    Mamba states by their rows alone."""
+    olmoe's KV heads over model; MLA latents' slots over model; a Mamba
+    ``h`` and an mLSTM state over model on their heads where the block is
+    head-parallel (the reduced zamba2's 2 heads are not cut over 4), a conv
+    window and an sLSTM state by their rows alone; and the blocks that run
+    whole."""
     dims, ranks = world
     got = {name: ranks[0][name]["cache_specs"] for name in VARIANTS}
     rows = ("data",) if dims[0] > 1 else ()
@@ -297,7 +318,16 @@ def test_the_placements_each_variant_takes(world):
         {"v": (rows[0] if rows else None, None, "model")}
     assert got["minicpm3-4b"][0] == {"c_kv": (rows[0] if rows else None, "model"),
                                      "k_pe": (rows[0] if rows else None, "model")}
-    assert got["zamba2-2.7b"][0] == {"h": rows, "conv": rows}
+    r = rows[0] if rows else None
+    cut = dims[1] == 2  # the reduced zamba2's 2 Mamba heads
+    assert got["zamba2-2.7b"][0] == {"h": (r, "model") if cut else rows, "conv": rows}
+    assert got["zamba2-2.7b-d128"][0] == {"h": (r, "model"), "conv": rows}
+    assert got["xlstm-125m"][0] == {"C": (r, "model"), "n": (r, "model"), "m": (r, "model")}
+    assert got["xlstm-125m"][3] == {k: rows for k in ("c", "n", "m", "h")}
+    whole = {name: ranks[0][name]["unpartitioned"] for name in VARIANTS}
+    assert whole["zamba2-2.7b"] == ([] if cut else [f"blocks.{i}.mamba" for i in range(4)])
+    assert whole["xlstm-125m"] == ["blocks.3.cell"]
+    assert whole["minicpm3-4b"] == whole["zamba2-2.7b-d128"] == []
 
 
 @pytest.mark.parametrize("arch", REFERENCE_DECODE)

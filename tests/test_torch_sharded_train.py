@@ -30,8 +30,17 @@ such entries must be fewer than 1 in 10^4; bf16, the
 losses of all meshes and the single device within 0.05 (the reference's
 cross-mesh bound, ``tests/test_distributed.py``).  On each mesh the step
 under remat "dots" (the exchanges recomputed with the rest) equals the step
-without remat within 1e-6.  This file imports
-no JAX: the spawned ranks import it.
+without remat within 1e-6.
+
+The same worlds hold the blocks that compute their heads' share under a
+mesh (``BLOCK_VARIANTS``, float32): zamba2-2.7b's Mamba2 blocks (reduced, 2
+heads: head-parallel on (2, 2), whole on every rank of (1, 4); at d_model
+128, 4 heads: head-parallel on both), xlstm-125m's mLSTM cells (its sLSTM
+cell whole) and minicpm3-4b's MLA attention.  Their loss and gradients are
+held to the single device's and to the reference's
+``jax.value_and_grad(Model.loss_fn)`` (run in the same subprocess), and
+their two steps' parameters to the single device's, at the float32 bounds
+above.  This file imports no JAX: the spawned ranks import it.
 """
 
 import os
@@ -61,13 +70,19 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 ARCHS = ("gemma3-1b", "olmoe-1b-7b")
 DTYPES = ("float32", "bfloat16")
 MESHES = ((2, 2), (1, 4), (4, 1))
+BLOCK_VARIANTS = {  # name: (arch, config overrides)
+    "zamba2-2.7b": ("zamba2-2.7b", {}),
+    "zamba2-2.7b-d128": ("zamba2-2.7b", {"d_model": 128}),
+    "xlstm-125m": ("xlstm-125m", {}),
+    "minicpm3-4b": ("minicpm3-4b", {}),
+}
 B, S, MB, STEPS = 8, 24, 2, 2
 OPT = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=6)
 LR_SUM = 5e-4 + 1e-3  # the two steps' learning rates (warmup 2)
 GRAD_SPREAD = 1e-3  # relative difference of two runs' step gradients that marks a rounding
 
 _REFERENCE = """
-import pickle, sys
+import ast, pickle, sys
 import numpy as np
 import jax, jax.numpy as jnp
 from repro.configs import get_config, reduced
@@ -84,12 +99,26 @@ for arch in ("gemma3-1b", "olmoe-1b-7b"):
         tok, lab = batches[0]
         loss, _ = jax.jit(model.loss_fn)(params, jnp.asarray(tok), jnp.asarray(lab))
         out[f"{arch}/{name}"] = {"params": jax.tree.map(np.asarray, params), "loss": float(loss)}
+for name, (arch, kw) in ast.literal_eval(sys.argv[2]).items():
+    model = Model(reduced(get_config(arch)).with_(param_dtype=jnp.float32, **kw))
+    params = model.init(jax.random.PRNGKey(0))
+    tok, lab = batches[0]
+    (loss, _), grads = jax.jit(jax.value_and_grad(model.loss_fn, has_aux=True))(
+        params, jnp.asarray(tok), jnp.asarray(lab))
+    out[name] = {"params": jax.tree.map(np.asarray, params), "loss": float(loss),
+                 "grads": jax.tree.map(np.asarray, grads)}
 pickle.dump(out, open(sys.argv[1], "wb"))
 """
 
 
-def _cfg(arch: str, dtype: str):
-    return reduced(get_config(arch)).with_(param_dtype=getattr(torch, dtype), capacity_factor=4.0)
+def _cfg(arch: str, dtype: str, **kw):
+    return reduced(get_config(arch)).with_(param_dtype=getattr(torch, dtype), capacity_factor=4.0,
+                                           **kw)
+
+
+def _block_cfg(name: str):
+    arch, kw = BLOCK_VARIANTS[name]
+    return _cfg(arch, "float32", **kw)
 
 
 def _tcfg(remat: str = "none") -> TrainConfig:
@@ -161,6 +190,15 @@ def _rank_job(rank: int, world: int, dims, reference) -> dict:
         res.update(_train(model, step, batches, mesh,
                           record=(dtype, remat) == ("float32", "none")))
         out[(arch, dtype, remat)] = res
+    for name in BLOCK_VARIANTS:
+        cfg = _block_cfg(name)
+        model = Model(cfg, device="cpu")
+        step = build_train_step(model, _tcfg(), mesh)
+        model.load_state_dict(params_from_jax(reference[name]["params"], cfg, mesh))
+        res = {"unpartitioned": step.unpartitioned}
+        res["loss"], res["grads"] = _grads(model, *batches[0], mesh)
+        res.update(_train(model, step, batches, mesh, record=True))
+        out[name] = res
     return out
 
 
@@ -169,8 +207,8 @@ def reference(tmp_path_factory):
     path = tmp_path_factory.mktemp("sharded_train") / "reference.pkl"
     env = {**os.environ, "JAX_PLATFORMS": "cpu",
            "PYTHONPATH": os.pathsep.join([str(SRC), os.environ.get("PYTHONPATH", "")])}
-    run = subprocess.run([sys.executable, "-c", _REFERENCE, str(path)], env=env,
-                         capture_output=True, text=True, timeout=300)
+    run = subprocess.run([sys.executable, "-c", _REFERENCE, str(path), repr(BLOCK_VARIANTS)],
+                         env=env, capture_output=True, text=True, timeout=300)
     assert run.returncode == 0, run.stderr[-3000:]
     with open(path, "rb") as f:
         return pickle.load(f)
@@ -192,6 +230,15 @@ def single(reference):
             out[(arch, dtype)] = {"loss": loss, "grads": grads,
                                   **_train(model, step, reference["batches"],
                                            record=dtype == "float32")}
+    for name in BLOCK_VARIANTS:
+        cfg = _block_cfg(name)
+        model = Model(cfg, device="cpu")
+        model.load_state_dict(params_from_jax(reference[name]["params"], cfg))
+        model.requires_grad_(True)
+        loss, grads = _grads(model, *reference["batches"][0])
+        step = build_train_step(model, _tcfg())
+        out[name] = {"loss": loss, "grads": grads,
+                     **_train(model, step, reference["batches"], record=True)}
     return out
 
 
@@ -214,26 +261,77 @@ def test_float32_loss_and_gradients_equal_the_single_device(world, single, refer
             np.testing.assert_allclose(got["grads"][k], g, rtol=1e-4, atol=1e-4, err_msg=k)
 
 
+def _steps_equal(got: dict, want: dict) -> None:
+    """Two steps' losses, gradient norms and parameters at the float32 bounds."""
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(got["grad_norms"], want["grad_norms"], rtol=1e-4)
+    outside, total = 0, 0
+    for k, p in want["params"].items():
+        diff = np.abs(got["params"][k] - p)
+        out_mask = diff > 1e-5 + 1e-5 * np.abs(p)
+        rounded = np.zeros(p.shape, bool)  # a step gradient whose float32 rounding shows
+        for mine, theirs in zip(got["step_grads"], want["step_grads"]):
+            rounded |= np.abs(mine[k] - theirs[k]) > GRAD_SPREAD * np.abs(theirs[k])
+        assert rounded[out_mask].all(), k
+        assert (diff[out_mask] <= 2 * LR_SUM).all(), k
+        outside += int(out_mask.sum())
+        total += p.size
+    assert outside <= 1e-4 * total
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_float32_steps_equal_the_single_device(world, single, arch):
     _, ranks = world
     want = single[(arch, "float32")]
     for out in ranks:
-        got = out[(arch, "float32", "none")]
-        np.testing.assert_allclose(got["losses"], want["losses"], rtol=0, atol=1e-3)
-        np.testing.assert_allclose(got["grad_norms"], want["grad_norms"], rtol=1e-4)
-        outside, total = 0, 0
-        for k, p in want["params"].items():
-            diff = np.abs(got["params"][k] - p)
-            out_mask = diff > 1e-5 + 1e-5 * np.abs(p)
-            rounded = np.zeros(p.shape, bool)  # a step gradient whose float32 rounding shows
-            for mine, theirs in zip(got["step_grads"], want["step_grads"]):
-                rounded |= np.abs(mine[k] - theirs[k]) > GRAD_SPREAD * np.abs(theirs[k])
-            assert rounded[out_mask].all(), k
-            assert (diff[out_mask] <= 2 * LR_SUM).all(), k
-            outside += int(out_mask.sum())
-            total += p.size
-        assert outside <= 1e-4 * total
+        _steps_equal(out[(arch, "float32", "none")], want)
+
+
+def _reference_grads(reference, name: str) -> dict:
+    """The reference's gradients of a block variant, by the port's names."""
+    cfg = _block_cfg(name)
+    grads = params_from_jax(reference[name]["grads"], cfg)
+    return {k: v.numpy() for k, v in grads.items()}
+
+
+@pytest.mark.parametrize("name", list(BLOCK_VARIANTS))
+def test_partitioned_blocks_loss_and_gradients(world, single, reference, name):
+    """The head-parallel blocks' loss and gradients against the single
+    device's and the reference's ``jax.value_and_grad`` (the single device's
+    within 3e-5 of the reference's, as ``test_torch_train.py`` holds it)."""
+    _, ranks = world
+    want, ref_grads = single[name], _reference_grads(reference, name)
+    assert abs(want["loss"] - reference[name]["loss"]) < 3e-5
+    for k, g in want["grads"].items():
+        np.testing.assert_allclose(g, ref_grads[k], rtol=3e-5, atol=3e-5, err_msg=k)
+    for out in ranks:
+        got = out[name]
+        assert abs(got["loss"] - want["loss"]) < 1e-3
+        assert abs(got["loss"] - reference[name]["loss"]) < 1e-3
+        for k, g in want["grads"].items():
+            np.testing.assert_allclose(got["grads"][k], g, rtol=1e-4, atol=1e-4, err_msg=k)
+            np.testing.assert_allclose(got["grads"][k], ref_grads[k], rtol=1e-4, atol=1e-4,
+                                       err_msg=k)
+
+
+@pytest.mark.parametrize("name", list(BLOCK_VARIANTS))
+def test_partitioned_blocks_steps_equal_the_single_device(world, single, name):
+    _, ranks = world
+    for out in ranks:
+        _steps_equal(out[name], single[name])
+
+
+def test_the_blocks_each_mesh_partitions(world):
+    """``unpartitioned``: nothing where ``model`` divides the heads (and on
+    (4, 1), where ``model`` has one rank) but the sLSTM cell; the reduced
+    zamba2's Mamba2 blocks (2 heads) on (1, 4)."""
+    dims, ranks = world
+    got = {name: ranks[0][name]["unpartitioned"] for name in BLOCK_VARIANTS}
+    model = dims[1] > 1
+    assert got["zamba2-2.7b"] == ([f"blocks.{i}.mamba" for i in range(4)]
+                                  if dims[1] == 4 else [])
+    assert got["zamba2-2.7b-d128"] == got["minicpm3-4b"] == []
+    assert got["xlstm-125m"] == (["blocks.3.cell"] if model else [])
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -18,9 +18,9 @@ draws the whole parameters and keeps its slice, so ``gather_params`` gives
 the unsharded model's parameters bit for bit; ``params_from_jax`` with the
 mesh gives each rank's slice; and the forward of five reduced configs in
 float32 (tensor-parallel attention and MLP, expert-parallel MoE at capacity
-factor 4 where nothing drops, and Mamba2, xLSTM and MLA gathered) equals the
-unsharded forward within 1e-5.  This file imports no JAX: the spawned ranks
-import it.
+factor 4 where nothing drops, Mamba2, the mLSTM cells and MLA head-parallel,
+the sLSTM cell gathered) equals the unsharded forward within 1e-5.  This
+file imports no JAX: the spawned ranks import it.
 """
 
 import json
@@ -259,10 +259,11 @@ def test_sharded_forward_equals_the_unsharded(ranks, arch):
 def test_unpartitioned_blocks_are_listed(ranks):
     out = ranks[0]
     assert out["gemma3-1b"]["unpartitioned"] == [] and out["olmoe-1b-7b"]["unpartitioned"] == []
-    zamba = out["zamba2-2.7b"]["unpartitioned"]
-    assert zamba == [f"blocks.{i}.mamba" for i in range(4)]  # the shared block is partitioned
-    assert out["xlstm-125m"]["unpartitioned"] == [f"blocks.{i}.cell" for i in range(4)]
-    assert out["minicpm3-4b"]["unpartitioned"] == [f"blocks.{i}.attn" for i in range(4)]
+    # Mamba2 (2 heads), the mLSTM cells (4 heads) and MLA (4 heads) over model 2,
+    # the shared block too; the sLSTM cell (pattern "mmms") runs whole
+    assert out["zamba2-2.7b"]["unpartitioned"] == []
+    assert out["xlstm-125m"]["unpartitioned"] == ["blocks.3.cell"]
+    assert out["minicpm3-4b"]["unpartitioned"] == []
 
 
 def test_each_rank_holds_its_slice(ranks):
