@@ -36,6 +36,20 @@ Phases, each printing one JSON line:
            its result, its owner_served schedule and its kernel launches;
   scans    the Eidola model's replay_lane and spin_reads on the card against
            their numpy closed forms, exactly;
+  eidola   the open-loop Eidola simulator (repro_torch.core) at the paper's
+           Table 1 (4 CUs, 3 eGPUs, 208 workgroups, M 256, K 8192): Fig. 6
+           (SPIN, flag delays 0-40 us in steps of 5), Fig. 9 (SYNCMON with
+           10 ns Gaussian write jitter, seed i*7+1), Fig. 10 (M 256-4096),
+           Fig. 11 (3-255 eGPUs, weak scaling at K 2048) and Fig. 12 (two
+           peers held up 30 us); at every point the vector engine with its
+           tensors on the card equals the CPU vector engine field for field
+           and the host's event and cycle engines on every field but the
+           engine-specific ones (name, head polls, monitor stats, wall); the
+           paper's claims (Fig. 6 linear, r^2 > 0.99, 65,792 non-flag reads;
+           SyncMon's flag reads in 728-788; Fig. 11's normalised event time
+           at 255 eGPUs below 128x; Fig. 12's wait inflated over 10x); a
+           report with one flag read added must be rejected.  One line a
+           figure with every engine's wall at each point beside the card;
   serve    gemma3-1b (slice 1's path), the main path olmoe-1b-7b (6.92 B
            parameters, 64 experts top-8), then zamba2-2.7b (2.42 B, 54 Mamba2
            layers and one shared attention block applied 9 times) and
@@ -94,7 +108,11 @@ Phases, each printing one JSON line:
            phase's device busy ms a step; and the card's bf16 8192^3 matmul
            and device-to-device copy rates beside H100_SXM's 989 TFLOP/s and
            3.35 TB/s.  Its seven abstract traces run at once, each in a
-           spawned process of its own with no world and no card;
+           spawned process of its own with no world and no card.  Each rank's
+           abstract schedule, lowered to an Eidola trace on H100_SXM, is
+           replayed open-loop in the port's simulator under SPIN and SYNCMON
+           (the event engine on the host, the vector engine on the card,
+           equal; span above 0), its counters printed;
   moe_ep   olmoe-1b-7b's MoE layer at full width expert-parallel on (1, 4),
            float32: the scatter path (B 4 x S 512) and the gather path (B 4 x
            S 1) against moe_apply on one rank, outputs and gradients; the
@@ -1715,6 +1733,180 @@ def phase_scans() -> dict:
             "spin_flag_reads": int(s_np.sum())}
 
 
+# The open-loop simulator's figures (benchmarks/paper_figs.py of the reference):
+# Fig. 6 SPIN over the wakeupTime sweep, Fig. 9 SYNCMON with 10 ns write jitter,
+# Fig. 10 the rows M, Fig. 11 the eGPUs (per-device K held at 2048), Fig. 12
+# two peers held up by 30 us.  Every point runs on every engine.
+EIDOLA_SWEEP_US = tuple(range(0, 41, 5))
+EIDOLA_M = (256, 512, 1024, 2048, 4096)
+EIDOLA_EGPUS = (3, 7, 15, 31, 63, 127, 255)
+EIDOLA_SCALING_DELAY_NS = 10_000.0
+EIDOLA_PEER_DELAY_NS = {2: 30_000.0, 3: 30_000.0}
+EIDOLA_RUNS = (("cycle", "cpu"), ("event", "cpu"), ("vector", "cpu"), ("vector", "cuda"))
+# the fields each engine accounts its own way, in the reference too: the cycle
+# engine's per-cycle head polls, the vector engine's closed-form monitor stats
+EIDOLA_ENGINE_SPECIFIC = ("engine", "wall_time_s", "wtt_head_polls", "monitor_stats")
+EIDOLA_PAPER = {"fig6_r2": 0.99, "nonflag_reads": 65_792, "fig9_reads": (728, 788),
+                "fig11_normalized_below": 128.0, "fig12_inflation_above": 10.0}
+
+
+def _report_fields(report, drop=("wall_time_s",)) -> dict:
+    d = dataclasses.asdict(report)
+    for key in drop:
+        d.pop(key)
+    return d
+
+
+def _eidola_disagreement(reports: dict) -> str | None:
+    """None when the vector engine on the card equals the CPU vector engine
+    on every field but the wall, and the host's event and cycle engines on
+    every field but the engine-specific ones; else what differs."""
+    card = reports[("vector", "cuda")]
+    for key, other in reports.items():
+        drop = ("wall_time_s",) if key == ("vector", "cpu") else EIDOLA_ENGINE_SPECIFIC
+        a, b = _report_fields(card, drop), _report_fields(other, drop)
+        if a != b:
+            return f"vector on cuda against {key}: fields {[k for k in a if a[k] != b[k]]}"
+    return None
+
+
+def _eidola_point(card: str, delay, perturb=None, runs=EIDOLA_RUNS, bundle=None,
+                  **cfg_kw) -> tuple:
+    """One point on every engine (``runs``: (engine, device) pairs), the
+    gemv_allreduce trace at ``delay`` or a given ``bundle``; fails unless they
+    agree.  Returns (the event engine's report, the row)."""
+    from repro_torch.core import EngineKind, Eidola, SimConfig, run_gemv_allreduce
+
+    reports = {}
+    for engine, device in runs:
+        cfg = SimConfig(engine=EngineKind(engine), **cfg_kw)
+        reports[(engine, device)] = (
+            run_gemv_allreduce(cfg, delay, perturb=perturb, device=device) if bundle is None
+            else Eidola(cfg, bundle, perturb=perturb, device=device).run())
+    if not reports[("vector", "cuda")].segments:
+        raise AssertionError("eidola: the vector engine on the card collected no segments")
+    wrong = _eidola_disagreement(reports)
+    if wrong:
+        raise AssertionError(f"eidola {cfg_kw} delay {delay}: {wrong}")
+    r = reports[("event", "cpu")]
+    return r, {"flag_reads": r.flag_reads, "nonflag_reads": r.nonflag_reads,
+               "kernel_span_ns": r.kernel_span_ns, "sim_cycles": r.sim_cycles,
+               "wall_s": {f"{e}/{d}": rep.wall_time_s for (e, d), rep in reports.items()},
+               "card": card}
+
+
+def _linear_fit(xs, ys) -> tuple:
+    """Slope and r^2 of the least-squares line, as paper_figs' _linfit_r2."""
+    fit = np.polyfit(xs, ys, 1)
+    ss_res = float(((np.array(ys) - np.polyval(fit, xs)) ** 2).sum())
+    ss_tot = float(((np.array(ys) - np.mean(ys)) ** 2).sum())
+    return float(fit[0]), 1.0 - ss_res / ss_tot if ss_tot > 0 else 1.0
+
+
+def phase_eidola(card: str) -> list:
+    """The open-loop Eidola simulator: the paper's Figs. 6 and 9-12 with the
+    vector engine's tensors on the card, each point held field for field to
+    the same engine on the CPU and to the event and cycle engines on the host;
+    the paper's claims; a report with one flag read added, rejected.  One
+    line a figure (every engine's wall at each point, beside the card), then
+    the phase's line."""
+    from repro_torch.core import GaussianPerturb, PeerDelayPerturb, SyncPolicy
+    from repro_torch.core.trace_render import phase_totals
+
+    t0 = time.perf_counter()
+    for sync in SyncPolicy:  # warm: the CUDA context, each sync's first launches
+        _eidola_point(card, 0.0, sync=sync)
+    lines = []
+    fig6 = [_eidola_point(card, d * 1000.0, sync=SyncPolicy.SPIN) for d in EIDOLA_SWEEP_US]
+    slope, r2 = _linear_fit(list(EIDOLA_SWEEP_US), [r.flag_reads for r, _ in fig6])
+    nonflag = {r.nonflag_reads for r, _ in fig6}
+    lines.append({"phase": "eidola", "figure": 6, "sync": "spin", "slope_per_us": slope,
+                  "r2": r2, "rows": [dict(row, wakeup_us=d)
+                                     for d, (_, row) in zip(EIDOLA_SWEEP_US, fig6)]})
+    if not (r2 > EIDOLA_PAPER["fig6_r2"] and slope > 0
+            and nonflag == {EIDOLA_PAPER["nonflag_reads"]}):
+        raise AssertionError(f"eidola Fig. 6: r2 {r2}, slope {slope}, non-flag {nonflag}")
+
+    fig9 = [_eidola_point(card, d * 1000.0,
+                          GaussianPerturb(seed=i * 7 + 1, write_sigma_ns=10.0),
+                          sync=SyncPolicy.SYNCMON)
+            for i, d in enumerate(EIDOLA_SWEEP_US)]
+    reads9 = [r.flag_reads for r, _ in fig9]
+    lines.append({"phase": "eidola", "figure": 9, "sync": "syncmon",
+                  "rows": [dict(row, wakeup_us=d, monitor_wakes=r.monitor_stats["wakes"])
+                           for d, (r, row) in zip(EIDOLA_SWEEP_US, fig9)]})
+    lo, hi = EIDOLA_PAPER["fig9_reads"]
+    if not (lo <= min(reads9) and max(reads9) <= hi
+            and {r.nonflag_reads for r, _ in fig9} == {EIDOLA_PAPER["nonflag_reads"]}):
+        raise AssertionError(f"eidola Fig. 9: flag reads {reads9} outside [{lo}, {hi}]")
+
+    fig10 = [_eidola_point(card, EIDOLA_SCALING_DELAY_NS, M=M, sync=SyncPolicy.SPIN)
+             for M in EIDOLA_M]
+    lines.append({"phase": "eidola", "figure": 10, "sync": "spin",
+                  "rows": [dict(row, M=M) for M, (_, row) in zip(EIDOLA_M, fig10)]})
+
+    fig11 = [_eidola_point(card, EIDOLA_SCALING_DELAY_NS, n_egpus=n, weak_scaling=True,
+                           K=2048, sync=SyncPolicy.SPIN) for n in EIDOLA_EGPUS]
+    normalized = {}
+    for key in (f"{e}/{d}" for e, d in EIDOLA_RUNS):
+        walls = np.array([row["wall_s"][key] for _, row in fig11])
+        t1, _te = np.linalg.lstsq(np.stack([np.ones(len(walls)), np.array(EIDOLA_EGPUS, float)],
+                                           axis=1), walls, rcond=None)[0]
+        normalized[key] = float(walls[-1] / max(t1, 1e-9))  # paper Eq. 1, at 255 eGPUs
+    lines.append({"phase": "eidola", "figure": 11, "sync": "spin", "K": 2048,
+                  "weak_scaling": True, "normalized_at_255": normalized,
+                  "rows": [dict(row, egpus=n, wtt_writes=r.wtt_registered)
+                           for n, (r, row) in zip(EIDOLA_EGPUS, fig11)]})
+    # the paper's claim is about the simulator's design: held on the event
+    # engine (paper_figs' default), the others printed beside it
+    if not normalized["event/cpu"] < EIDOLA_PAPER["fig11_normalized_below"]:
+        raise AssertionError(f"eidola Fig. 11: normalized time {normalized}")
+
+    ideal, ideal_row = _eidola_point(card, 0.0, sync=SyncPolicy.SPIN)
+    slow, slow_row = _eidola_point(card, 0.0, PeerDelayPerturb(dict(EIDOLA_PEER_DELAY_NS)),
+                                   sync=SyncPolicy.SPIN)
+    wait_i = phase_totals(ideal.segments).get("wait_flags", 0.0)
+    wait_s = phase_totals(slow.segments).get("wait_flags", 0.0)
+    inflation = wait_s / max(wait_i, 1.0)
+    lines.append({"phase": "eidola", "figure": 12, "sync": "spin",
+                  "peer_delay_ns": EIDOLA_PEER_DELAY_NS, "ideal_wait_ns_total": wait_i,
+                  "contended_wait_ns_total": wait_s, "wait_inflation": inflation,
+                  "rows": [dict(ideal_row, case="ideal"), dict(slow_row, case="contended")]})
+    if not inflation > EIDOLA_PAPER["fig12_inflation_above"]:
+        raise AssertionError(f"eidola Fig. 12: wait inflation {inflation}")
+
+    # a planted fault: the comparison must reject one flag read too many
+    planted = dataclasses.replace(ideal, flag_reads=ideal.flag_reads + 1)
+    rejected = _eidola_disagreement({("vector", "cuda"): planted, ("event", "cpu"): ideal})
+    if rejected is None:
+        raise AssertionError("eidola: a report with one flag read added was not rejected")
+    points = len(fig6) + len(fig9) + len(fig10) + len(fig11) + 2
+    lines.append({"phase": "eidola", "points": points, "runs_per_point": len(EIDOLA_RUNS),
+                  "engines_equal": True, "paper": EIDOLA_PAPER, "planted_fault": rejected,
+                  "seconds": time.perf_counter() - t0, "card": card})
+    return lines
+
+
+def _eidola_replay(card: str, bundles: dict) -> list:
+    """Each capture trace replayed open-loop in the port's Eidola, SPIN and
+    SYNCMON: the event engine on the host and the vector engine on the card,
+    which must agree; the span must be above 0."""
+    from repro_torch.core import SyncPolicy
+
+    rows = []
+    for name, bundle in bundles.items():
+        for sync in SyncPolicy:
+            t0 = time.perf_counter()
+            r, row = _eidola_point(card, None, runs=(("event", "cpu"), ("vector", "cuda")),
+                                   bundle=bundle, sync=sync)
+            if not r.kernel_span_ns > 0:
+                raise AssertionError(f"eidola replay of {name} ({sync.value}): span 0")
+            rows.append(dict(row, trace=name, sync=sync.value, writes=len(bundle),
+                             wtt_enacted=r.wtt_enacted, monitor_stats=r.monitor_stats,
+                             seconds=time.perf_counter() - t0))
+    return rows
+
+
 def phase_serve(card: str, arch: str) -> tuple:
     """``arch`` at full width (random bf16 weights from a seeded generator)
     through ServeEngine: REQUESTS x (PROMPT_LEN + NEW_TOKENS) tokens, greedy,
@@ -2487,9 +2679,11 @@ def phase_capture(card: str, ranks: list, single: dict) -> dict:
             len(jobs), mp_context=multiprocessing.get_context("spawn")) as pool:
         traced = dict(zip(jobs, pool.map(_abstract_trace, jobs)))
     traces_s = time.perf_counter() - t_start
-    per_rank = []
+    per_rank, rank_traces = [], {}
+    rank_topo = topo_for("x".join(str(n) for n in SHARDED_MESH.values()), H100_SXM)
     for r in ranks:
         tr, trace_s = traced[("rank", r["rank"])]
+        rank_traces[f"rank {r['rank']}"] = schedule_to_trace(tr["ops"], rank_topo)
         steps = [[CollectiveOp(**{**d, "axes": tuple(d["axes"])}) for d in ops]
                  for ops in r["schedules"]]
         executed = steps[CAPTURE_STEP - 1]
@@ -2564,6 +2758,7 @@ def phase_capture(card: str, ranks: list, single: dict) -> dict:
     return {"phase": "capture", "step_held": CAPTURE_STEP, "mesh": SHARDED_MESH,
             "ranks": per_rank, "cells": cells, "one_card_cell": one_card,
             "card_rates": _card_rates(), "abstract_traces_s": traces_s,
+            "eidola_replay": _eidola_replay(card, rank_traces),
             "seconds": time.perf_counter() - t_start,
             "card": card}
 
@@ -3724,6 +3919,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     allreduce = done("gemv_allreduce", phase_gemv_allreduce())
     done("scans", phase_scans())
+    eidola = phase_eidola(card)
+    for line in eidola[:-1]:
+        emit(line)
+    done("eidola", eidola[-1])
     serves, profiles = {}, {}
     for arch in SERVE_ARCHS:
         model, serves[arch] = phase_serve(card, arch)

@@ -6,8 +6,8 @@ to be held against: ``models/``, ``serving/``, ``launch/`` and ``configs/``
 (forward, prefill and decode of the dense, sliding, MLA, M-RoPE and MoE
 configs), ``kernels/`` (the four Hopper kernels and their plain
 versions), ``distributed/`` (the fused GEMV+AllReduce and its companion
-collectives on ``torch.distributed``) and ``core/`` (the Eidola model's two
-spin-wait scans).  It imports ``torch`` only: no ``jax`` and nothing of
+collectives on ``torch.distributed``) and ``core/`` (the open-loop Eidola
+simulator, its spin-wait scans and the capture bridge).  It imports ``torch`` only: no ``jax`` and nothing of
 ``repro``.  Where it needs a piece of a reference module it keeps its own
 copy.  Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; the kernels (``kernels/csrc/*.cu``) are built with

@@ -1,17 +1,64 @@
-"""The Eidola model's pieces the port needs (port of parts of ``repro.core``).
+"""The Eidola simulator and the capture bridge (port of ``repro.core``).
 
-``replay_lane`` and ``spin_reads`` are the spin-wait closed forms of the
-GEMV+AllReduce's ``wait_flags`` phase, vectorised over cohorts or
-workgroups on a torch device.  The capture bridge's modules copy what it
-needs of the numpy simulator's: ``interconnect`` (the hardware presets,
-``H100_SXM`` the port's own), ``topology`` (the collective algebra),
-``events`` and ``memory`` (the trace and its address map), ``capture`` (the
-torch front end and the trace lowering), ``cost`` (a traced step's FLOPs and
-bytes) and ``predictor`` (the roofline).  The simulator's engines are not
-ported: a trace the port writes is replayed by ``repro.core.Eidola``.
+The open-loop simulator: one detailed device (``target``: phase programs as
+data, SPIN and SyncMon waits, counted cohorts) replays its peers' registered
+writes (``events``) from the write-tracking table (``wtt``) into a directory
+memory with a Monitor Log (``memory``, ``monitor``), driven by the cycle or
+event engine (``engine``) on the host or by the vector engine
+(``vector_engine.run_vectorized``) on torch tensors on a device; ``simulator``
+(``Eidola``, ``Report``) wires them, ``scenario`` is the program API, the
+registry, ``simulate`` and ``SweepRunner``, ``scenarios`` registers
+``gemv_allreduce`` (``workload``), ``perturb`` the variability models and
+``trace_render`` the timeline exports.  ``simulate``, ``Eidola``,
+``run_gemv_allreduce`` and ``SweepRunner`` run on the CUDA device unless the
+caller passes ``device="cpu"``.  The closed loop (a cluster of detailed
+devices over a fabric model) is not ported yet.
+
+``replay_lane`` and ``spin_reads`` are the spin-wait closed forms vectorised
+over cohorts or workgroups.  The capture bridge's modules: ``interconnect``
+(the hardware presets, ``H100_SXM`` the port's own), ``topology`` (the
+collective algebra), ``capture`` (the torch front end and the trace
+lowering), ``cost`` (a traced step's FLOPs and bytes) and ``predictor`` (the
+roofline).
 """
 
 from .cohort_timeline import replay_lane
+from .config import EngineKind, SimConfig, SyncPolicy
+from .events import PHASES, RegisteredWrite, Segment, TraceBundle, register_phase
+from .memory import AddressMap, DirectoryMemory, TrafficCounters
+from .monitor import MonitorEntry, MonitorLog
+from .perturb import GaussianPerturb, NullPerturb, PeerDelayPerturb
+from .scenario import (
+    EmitOp,
+    PhaseSpec,
+    Scenario,
+    SweepPoint,
+    SweepRunner,
+    TrafficOp,
+    WGProgram,
+    get_scenario,
+    list_scenarios,
+    register_scenario,
+    simulate,
+)
+from .simulator import Eidola, Report, run_gemv_allreduce
+from .target import EidolaDeadlock, TargetDevice
 from .vector_engine import spin_reads
+from .workload import GemvAllReduceWorkload, make_gemv_allreduce_traces
+from .wtt import WriteTrackingTable
 
-__all__ = ["replay_lane", "spin_reads"]
+__all__ = [
+    "EngineKind", "SimConfig", "SyncPolicy",
+    "PHASES", "RegisteredWrite", "Segment", "TraceBundle", "register_phase",
+    "AddressMap", "DirectoryMemory", "TrafficCounters",
+    "MonitorEntry", "MonitorLog",
+    "GaussianPerturb", "NullPerturb", "PeerDelayPerturb",
+    "EmitOp", "PhaseSpec", "Scenario", "SweepPoint", "SweepRunner",
+    "TrafficOp", "WGProgram", "get_scenario", "list_scenarios",
+    "register_scenario", "simulate",
+    "Eidola", "Report", "run_gemv_allreduce",
+    "EidolaDeadlock", "TargetDevice",
+    "GemvAllReduceWorkload", "make_gemv_allreduce_traces",
+    "WriteTrackingTable",
+    "replay_lane", "spin_reads",
+]

@@ -7,7 +7,8 @@ roofline and trace lowering, and the capture of a rank's collective schedule.
   the reference does not know).
 - A trace the port writes loads in ``repro.core.events.TraceBundle`` and
   replays in ``repro.core.Eidola`` (EVENT engine, SPIN and SYNCMON) with the
-  reference trace's ``flag_reads`` and ``kernel_span_ns``.
+  reference trace's ``flag_reads`` and ``kernel_span_ns``; in the port's own
+  ``Eidola`` it gives the reference's report, field for field.
 - Capture equals execution: in a gloo world of 4 CPU ranks on a (2, 2) mesh,
   each rank's executed schedule of one train step of reduced gemma3-1b and
   olmoe-1b-7b (expert-parallel) equals, op for op, the abstract capture of
@@ -267,6 +268,29 @@ def test_port_trace_replays_in_the_reference_simulator():
         assert got.flag_reads > 0
         # the ops priced on their own axes replay too
         assert Eidola(cfg, with_axes).run().kernel_span_ns > 0
+
+
+def test_port_trace_replays_in_the_port_simulator():
+    from repro.core import EngineKind as RefEngine, Eidola as RefEidola
+    from repro.core import SimConfig as RefConfig, SyncPolicy as RefSync
+    from repro.core.events import TraceBundle as RefBundle
+
+    from repro_torch.core import EngineKind, Eidola, SimConfig, SyncPolicy
+
+    ops = _trace_ops(reduced(get_config("gemma3-1b")), (2, 2), 0)["ops"]
+    bundle = schedule_to_trace(ops, Topology((2, 2), ("data", "model"), V5E),
+                               compute_gap_ns=2000.0)
+    for sync in ("spin", "syncmon"):
+        got = Eidola(SimConfig(sync=SyncPolicy(sync), engine=EngineKind.EVENT),
+                     TraceBundle.from_json(bundle.to_json()), device="cpu").run()
+        ref = RefEidola(RefConfig(sync=RefSync(sync), engine=RefEngine.EVENT),
+                        RefBundle.from_json(bundle.to_json())).run()
+        want = dataclasses.asdict(ref)
+        have = dataclasses.asdict(got)
+        want.pop("wall_time_s"), have.pop("wall_time_s")
+        assert have == want
+        assert got.flag_reads > 0 and got.kernel_span_ns > 0
+        assert got.wtt_enacted == len(bundle)
 
 
 def _rank_schedules(rank, world, archs, dims):

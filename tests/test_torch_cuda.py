@@ -710,3 +710,36 @@ def test_reduced_model_gradients_on_the_card_match_the_cpu(cuda, arch):
         scale = max(want.abs().max().item(), 1e-6)
         torch.testing.assert_close(p.grad.cpu() / scale, want / scale, rtol=1e-4, atol=1e-4,
                                    msg=name)
+
+
+def test_vector_engine_on_the_card_equals_the_host_engines(cuda):
+    """The Table 1 sweep (SPIN and SYNCMON, flag delays 0-40 us and per peer,
+    no perturbation and two peers delayed): the vector engine's tensors on the
+    card give the event engine's report on the host, apart from the
+    engine-specific fields (the name, head polls, the closed-form monitor
+    stats, the wall), and the CPU vector engine's, apart from the wall."""
+    import dataclasses
+
+    from repro_torch.core import EngineKind, PeerDelayPerturb, SimConfig, SyncPolicy
+    from repro_torch.core import run_gemv_allreduce
+
+    def fields(report, drop):
+        d = dataclasses.asdict(report)
+        for k in drop:
+            d.pop(k)
+        return d
+
+    engine_specific = ("engine", "wall_time_s", "wtt_head_polls", "monitor_stats")
+    for sync in SyncPolicy:
+        for delay in (0.0, 5_000.0, 20_000.0, 40_000.0, [0.0, 12_500.0, 40_000.0]):
+            for perturb in (None, PeerDelayPerturb({2: 25_000, 3: 25_000})):
+                run = {(eng, dev): run_gemv_allreduce(SimConfig(sync=sync, engine=eng), delay,
+                                                      perturb=perturb, device=dev)
+                       for eng, dev in ((EngineKind.VECTOR, cuda), (EngineKind.VECTOR, "cpu"),
+                                        (EngineKind.EVENT, "cpu"))}
+                card = run[(EngineKind.VECTOR, cuda)]
+                assert fields(card, ("wall_time_s",)) == \
+                    fields(run[(EngineKind.VECTOR, "cpu")], ("wall_time_s",))
+                assert fields(card, engine_specific) == \
+                    fields(run[(EngineKind.EVENT, "cpu")], engine_specific)
+                assert card.nonflag_reads == 65_792 and type(card.flag_reads) is int

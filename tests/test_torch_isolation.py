@@ -37,17 +37,24 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env, check=True,
                          capture_output=True, text=True, timeout=120).stdout.split()
     assert out == [str(expected), "[]"]
-    assert expected >= 58  # every module of the slices so far was walked: moe.py and
+    assert expected >= 82  # every module of the slices so far was walked: moe.py and
     # the ten configs of the attention-family slice, ssm.py and xlstm.py, the
     # training slice's optim, data, checkpoint, ft, training and launch.train,
-    # and the sharded substrate's sharding, zero, remat, pipeline, moe_ep and mesh
+    # the sharded substrate's sharding, zero, remat, pipeline, moe_ep and mesh,
+    # and the open-loop simulator's twelve core modules and its command line
     assert {"repro_torch.models.ssm", "repro_torch.models.xlstm", "repro_torch.optim.adamw",
             "repro_torch.data.pipeline", "repro_torch.checkpoint.store",
             "repro_torch.ft.resilience", "repro_torch.training.trainer",
             "repro_torch.launch.train", "repro_torch.distributed.sharding",
             "repro_torch.distributed.zero", "repro_torch.distributed.remat",
             "repro_torch.distributed.pipeline", "repro_torch.models.moe_ep",
-            "repro_torch.launch.mesh"} <= {
+            "repro_torch.launch.mesh", "repro_torch.core.config", "repro_torch.core.wtt",
+            "repro_torch.core.monitor", "repro_torch.core.perturb",
+            "repro_torch.core.scenario", "repro_torch.core.scenarios",
+            "repro_torch.core.scenarios.gemv_allreduce", "repro_torch.core.workload",
+            "repro_torch.core.target", "repro_torch.core.engine",
+            "repro_torch.core.simulator", "repro_torch.core.trace_render",
+            "repro_torch.launch.scenario"} <= {
         m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
 
 
