@@ -6,8 +6,8 @@ Run from the repository root on a machine with a CUDA device (an H100):
 
 Phases, each printing one JSON line:
   device   the card's name and power limit (nvidia-smi) and torch's view of it;
-  build    nvcc builds the four kernels and the empty launch-floor kernel
-           (ptxas register / shared-memory lines);
+  build    nvcc builds the four kernels, the ordered scan and the empty
+           launch-floor kernel (ptxas register / shared-memory lines);
   kernels  each kernel against its plain version at its path's shapes (and
            gemv / gemv_tiles at the reference's sweeps, in both layouts of A),
            timed with CUDA events beside the plain version and a library call;
@@ -36,6 +36,23 @@ Phases, each printing one JSON line:
            its result, its owner_served schedule and its kernel launches;
   scans    the Eidola model's replay_lane and spin_reads on the card against
            their numpy closed forms, exactly;
+  cluster  the closed-loop simulator (slice 5b): the 106 rows of
+           BENCH_multi_device.json (the reference's own record of its
+           counters) that this slice reproduces, 4 scenarios x 4-4096
+           devices x flat / two_tier / fat_tree / rail_optimized at 64
+           workgroups under SPIN: every flat row, the tiered ring_allreduce,
+           all_to_all and hierarchical_allreduce rows up to 64 devices and
+           every tiered pipeline_p2p row.  Flat ring_allreduce and all_to_all
+           run through the flat lockstep solver with its tensors on the card
+           (the ordered scan's launches counted), every other row through the
+           host timeline engine.  Each row's counters (flag and non-flag
+           reads, xGMI writes in, WTT enacted, kernel span, cycles) must equal
+           the record exactly; the card solver's report must equal the CPU
+           solver's at every flat count, field for field but the walls, and
+           the host timeline engine's counters up to 256 ranks; a result with
+           one flag read added must be rejected.  One line a scenario (each
+           row's wall on the card and on the CPU, or on the host for the host
+           engine's rows) and a phase line;
   eidola   the open-loop Eidola simulator (repro_torch.core) at the paper's
            Table 1 (4 CUs, 3 eGPUs, 208 workgroups, M 256, K 8192): Fig. 6
            (SPIN, flag delays 0-40 us in steps of 5), Fig. 9 (SYNCMON with
@@ -221,7 +238,8 @@ import torch.nn.functional as F
 SRC = Path(__file__).resolve().parent / "src"
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and operations/s by type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+# (float64 outside the tensor cores: 34 TFLOP/s, the same data sheet)
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "float64": 34e12}
 # bf16 kernel output against the float32 plain version on the same inputs: the
 # kernel rounds its float32 result to bf16 (relative error <= 2^-9), so this is
 # about 5x that rounding; it rejects a dropped slot or a bf16 accumulator
@@ -241,6 +259,10 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel's pallas_call site)
     "gemv": ("src/repro_torch/kernels/csrc/gemv.cu", "src/repro/kernels/gemv.py:53"),
     "gemv_tiles": ("src/repro_torch/kernels/csrc/gemv_tiles.cu",
                    "src/repro/kernels/gemv_tiles.py:92"),
+    # the port's own kernel: the reference's flat lockstep solver adds its
+    # busy chains and queued sums with numpy's sequential np.cumsum
+    "ordered_scan": ("src/repro_torch/kernels/csrc/ordered_scan.cu",
+                     "src/repro/core/lockstep.py:828"),
 }
 SERVE_KERNELS = ("rmsnorm", "decode_attention")  # the serve paths'; gemv's run in
 # the kernels and gemv_allreduce phases
@@ -1435,6 +1457,50 @@ def _family_heads(gen: torch.Generator) -> dict:
     return out
 
 
+# the ordered scan at the flat lockstep solver's shapes at 4096 ranks: the
+# all_to_all fan-out's busy chains [2049, 4096] and queued times [2048, 4096],
+# a block of 256 stages' queued times [4096, 256], a block's total [257, 1]
+ORDERED_SCAN_SHAPES = ((2049, 4096), (2048, 4096), (4096, 256), (257, 1), (1, 1))
+
+
+def _ordered_scan_at(gen: torch.Generator) -> dict:
+    """The ordered scan against its plain version and np.add.accumulate, bit
+    for bit, at the solver's shapes, on columns where any other order of the
+    adds gives another result; timed at the fan-out chain's shape beside the
+    plain version and torch.cumsum, and by device time in one profile."""
+    from repro_torch.kernels.ordered_scan import ordered_scan_cuda, ordered_scan_ref
+
+    def adversarial(L, R):
+        x = torch.randn(L, R, generator=gen, device="cuda", dtype=torch.float64)
+        x[0::4] += 1e16
+        x[1::4] = 1.0
+        x[2::4] -= 1e16
+        return x
+
+    checks = []
+    for L, R in ORDERED_SCAN_SHAPES:
+        x = adversarial(L, R)
+        got = ordered_scan_cuda(x)
+        plain = ordered_scan_ref(x)
+        want = np.add.accumulate(x.cpu().numpy(), axis=0)
+        if not (torch.equal(got, plain) and np.array_equal(got.cpu().numpy(), want)):
+            raise AssertionError(f"ordered_scan [{L}, {R}] differs from its plain version")
+        lib = torch.cumsum(x, dim=0)
+        checks.append({"shape": [L, R], "exact": True,
+                       "cumsum_columns_off": int((lib[-1] != got[-1]).sum())})
+    L, R = ORDERED_SCAN_SHAPES[0]
+    x = adversarial(L, R)
+    b_ms, b_by = bound_ms(2 * L * R * 8, L * R, "float64")
+    same_run = _profile_calls({"ordered_scan": ordered_scan_cuda,
+                               "library": lambda xx: torch.cumsum(xx, dim=0)}, [x])
+    return {"shape": [L, R], "dtype": "float64", "checks": checks, "max_abs_err": 0.0,
+            "ms": time_ms(lambda: ordered_scan_cuda(x), iters=50, warmup=5),
+            "plain_ms": time_ms(lambda: ordered_scan_ref(x), iters=3, warmup=1),
+            "library_ms": time_ms(lambda: torch.cumsum(x, dim=0), iters=50, warmup=5),
+            "bound_ms": b_ms, "bound_by": b_by, "device_ms": same_run["ordered_scan"],
+            "library_device_ms": same_run["library"]}
+
+
 def phase_build() -> dict:
     from repro_torch.kernels import build
 
@@ -1543,7 +1609,8 @@ def phase_kernels() -> dict:
             "rmsnorm_gemma3_1b": rms_gemma, "decode_attention_gemma3_1b": att,
             "decode_attention_variants": variants,
             "decode_attention_heads": _attention_sweep(gen, sms),
-            "decode_attention_families": _family_heads(gen), **_gemv_kernel_checks(gen)}
+            "decode_attention_families": _family_heads(gen),
+            "ordered_scan": _ordered_scan_at(gen), **_gemv_kernel_checks(gen)}
 
 
 def _allreduce_rank(rank: int, world: int, shapes: dict, reps: int) -> dict:
@@ -1905,6 +1972,145 @@ def _eidola_replay(card: str, bundles: dict) -> list:
                              wtt_enacted=r.wtt_enacted, monitor_stats=r.monitor_stats,
                              seconds=time.perf_counter() - t0))
     return rows
+
+
+# The closed loop (slice 5b): the rows of BENCH_multi_device.json (written by
+# the reference's benchmarks/multi_device_bench.py: SimConfig(workgroups=64,
+# engine=EVENT), SPIN, collect_segments=False) that this slice reproduces.
+# The tiered ring_allreduce, all_to_all and hierarchical_allreduce rows above
+# 64 devices need the tiered lockstep solver (slice 5c) to run in reasonable
+# time and are left out.
+CLUSTER_BENCH = Path(__file__).resolve().parent / "BENCH_multi_device.json"
+CLUSTER_COUNTERS = ("flag_reads", "nonflag_reads", "xgmi_writes_in", "wtt_enacted",
+                    "kernel_span_ns", "sim_cycles")
+CLUSTER_SOLVED = ("ring_allreduce", "all_to_all")  # flat: the lockstep solver, on the card
+CLUSTER_TIERED_MAX = 64
+CLUSTER_TIMELINE_MAX = 256  # the card solver held to the host timeline engine up to here
+CLUSTER_ROWS = 106
+
+
+def _cluster_rows() -> list:
+    rows = json.loads(CLUSTER_BENCH.read_text())["rows"]
+    return [r for r in rows if r["devices_per_node"] is None or r["scenario"] == "pipeline_p2p"
+            or r["devices"] <= CLUSTER_TIERED_MAX]
+
+
+def _cluster_counters(report) -> dict:
+    return {"flag_reads": report.flag_reads, "nonflag_reads": report.nonflag_reads,
+            "xgmi_writes_in": report.traffic.get("xgmi_writes_in", 0),
+            "wtt_enacted": report.wtt_enacted, "kernel_span_ns": report.kernel_span_ns,
+            "sim_cycles": report.sim_cycles}
+
+
+def _cluster_mismatch(got: dict, row: dict) -> list:
+    """The counters of ``got`` that differ from the recorded row's."""
+    return [k for k in CLUSTER_COUNTERS if got[k] != row[k]]
+
+
+def _cluster_fields(report) -> dict:
+    d = dataclasses.asdict(report)
+    d.pop("wall_time_s")
+    d["meta"].pop("wall_breakdown", None)
+    d["meta"]["program_stats"].pop("construct_wall_s")
+    return d
+
+
+def _cluster_engine_counters(report) -> dict:
+    """What the solver and the timeline engine both account exactly: every
+    counter, per device, and the fabric's but its float queued aggregates."""
+    fabric = {k: v for k, v in report.meta["fabric"].items() if not k.endswith("queued_ns")}
+    return {**_cluster_counters(report), "traffic": report.traffic,
+            "per_device": report.per_device, "fabric": fabric}
+
+
+def _cluster_run(row: dict, device: str, **kw) -> tuple:
+    from repro_torch.core import EngineKind, SimConfig, simulate
+
+    cfg = SimConfig(workgroups=row["workgroups"], engine=EngineKind.EVENT)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = simulate(row["scenario"], cfg, devices=row["devices"], closed_loop=True,
+                      devices_per_node=row["devices_per_node"], fabric=row["fabric"],
+                      collect_segments=False, device=device, **kw)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return report, time.perf_counter() - t0
+
+
+def phase_cluster(card: str) -> list:
+    """The closed loop: every row this slice reproduces, its counters equal
+    to the reference's record; the flat solver on the card equal to the CPU
+    solver and to the host timeline engine; a planted read rejected.  One
+    line a scenario, then the phase's line."""
+    from repro_torch.kernels.ordered_scan import ordered_scan_cuda
+
+    t0 = time.perf_counter()
+    rows = _cluster_rows()
+    if len(rows) != CLUSTER_ROWS:
+        raise AssertionError(f"cluster: {len(rows)} rows selected, not {CLUSTER_ROWS}")
+    # warm: the CUDA context and the solver's first launches, outside the count
+    _cluster_run(rows[0], "cuda")
+    ordered_scan_cuda.launches = 0
+    lines, mismatches = {}, []
+    card_walls = {}
+    for row in rows:
+        name = row["scenario"]
+        solved = name in CLUSTER_SOLVED and row["devices_per_node"] is None
+        report, wall = _cluster_run(row, "cuda")
+        got = _cluster_counters(report)
+        wrong = _cluster_mismatch(got, row)
+        if wrong:
+            mismatches.append({"row": {k: row[k] for k in ("scenario", "devices",
+                                                           "devices_per_node", "fabric")},
+                               "fields": wrong})
+        out = {"devices": row["devices"], "devices_per_node": row["devices_per_node"],
+               "fabric": row["fabric"] or ("two_tier" if row["devices_per_node"] else "ring"),
+               "lockstep_reason": report.meta["lockstep_reason"],
+               "reference_wall_s": row["wall_time_s"]}
+        if solved:
+            if report.meta["lockstep_reason"] != "engaged":
+                raise AssertionError(f"cluster {name} {row['devices']}: the flat solver did not "
+                                     f"engage: {report.meta['lockstep_reason']}")
+            cpu, cpu_wall = _cluster_run(row, "cpu")
+            if _cluster_fields(report) != _cluster_fields(cpu):
+                raise AssertionError(f"cluster {name} {row['devices']}: the card solver's report "
+                                     "differs from the CPU solver's")
+            out.update(wall_card_s=wall, wall_cpu_s=cpu_wall,
+                       solve_card_s=report.meta["wall_breakdown"]["solve_s"],
+                       solve_cpu_s=cpu.meta["wall_breakdown"]["solve_s"])
+            card_walls[(name, row["devices"])] = wall
+            if row["devices"] <= CLUSTER_TIMELINE_MAX:
+                host, host_wall = _cluster_run(row, "cpu", lockstep=False)
+                if _cluster_engine_counters(host) != _cluster_engine_counters(report):
+                    raise AssertionError(f"cluster {name} {row['devices']}: the card solver "
+                                         "differs from the host timeline engine")
+                out["wall_timeline_host_s"] = host_wall
+        else:
+            out["wall_host_s"] = wall
+        lines.setdefault(name, []).append(out)
+    launches = ordered_scan_cuda.launches
+    if mismatches:
+        raise AssertionError(f"cluster: {len(mismatches)} rows differ from "
+                             f"BENCH_multi_device.json: {mismatches[:5]}")
+    if launches == 0:
+        raise AssertionError("cluster: the card solver never launched the ordered scan")
+    # a planted fault: the comparison must reject one flag read too many
+    row = rows[0]
+    planted = dict(_cluster_counters(_cluster_run(row, "cpu")[0]))
+    planted["flag_reads"] += 1
+    rejected = _cluster_mismatch(planted, row)
+    if rejected != ["flag_reads"]:
+        raise AssertionError(f"cluster: a result with one flag read added gave {rejected}")
+    out_lines = [{"phase": "cluster", "scenario": name, "rows": rs, "card": card}
+                 for name, rs in lines.items()]
+    out_lines.append({"phase": "cluster", "rows": len(rows), "equal_to_record": True,
+                      "card_solver_equals_cpu": True,
+                      "timeline_checked_up_to": CLUSTER_TIMELINE_MAX,
+                      "launches": {"ordered_scan": launches}, "planted_fault": rejected,
+                      "seconds": time.perf_counter() - t0, "card": card})
+    return out_lines
 
 
 def phase_serve(card: str, arch: str) -> tuple:
@@ -3923,6 +4129,10 @@ def main() -> int:
     for line in eidola[:-1]:
         emit(line)
     done("eidola", eidola[-1])
+    cluster = phase_cluster(card)
+    for line in cluster[:-1]:
+        emit(line)
+    cluster = done("cluster", cluster[-1])
     serves, profiles = {}, {}
     for arch in SERVE_ARCHS:
         model, serves[arch] = phase_serve(card, arch)
@@ -3965,9 +4175,14 @@ def main() -> int:
                     profiles[MAIN_ARCH]["kernels"][name]["device_ms_per_launch"])
         if name == "rmsnorm_bwd":
             return trains[TRAIN_MAIN]["launches"][name], kernels[name]["device_ms"]
+        if name == "ordered_scan":  # the flat solver's rows of the cluster phase
+            return cluster["launches"][name], kernels[name]["device_ms"]
         return allreduce["launches"][name], kernels[name]["device_ms"]
 
     def by_path(name):
+        if name == "ordered_scan":
+            return {"launches_by_path": {"cluster, flat lockstep solver":
+                                         cluster["launches"][name]}}
         paths = {f"{a} serve": serves[a]["launches"][name] for a in serves
                  if name in SERVE_KERNELS}
         paths.update({f"{a} train": trains[a]["launches"][name] for a in trains

@@ -11,8 +11,16 @@ registry, ``simulate`` and ``SweepRunner``, ``scenarios`` registers
 ``gemv_allreduce`` (``workload``), ``perturb`` the variability models and
 ``trace_render`` the timeline exports.  ``simulate``, ``Eidola``,
 ``run_gemv_allreduce`` and ``SweepRunner`` run on the CUDA device unless the
-caller passes ``device="cpu"``.  The closed loop (a cluster of detailed
-devices over a fabric model) is not ported yet.
+caller passes ``device="cpu"``.
+
+The closed loop: ``cluster`` (``Cluster``: every device detailed, flags
+emitted at phase completions and routed over ``topology.FabricModel``, a
+fabric from ``interconnect``'s gallery), the four closed-loop scenarios,
+``cohort_timeline``'s ``TimelineEngine`` (host) and ``lockstep``'s flat
+solver, whose cursor matrices live on the cluster's device; ``egpu`` holds
+the synthetic write-stream generators.  ``Cluster`` runs on the CUDA device
+unless the caller passes ``device="cpu"``.  Not ported yet: the tiered
+lockstep solver and ``repro.analysis`` (sanitizer, verifier, layout prover).
 
 ``replay_lane`` and ``spin_reads`` are the spin-wait closed forms vectorised
 over cohorts or workgroups.  The capture bridge's modules: ``interconnect``
@@ -22,9 +30,22 @@ lowering), ``cost`` (a traced step's FLOPs and bytes) and ``predictor`` (the
 roofline).
 """
 
-from .cohort_timeline import replay_lane
+from .cluster import Cluster, ClusterNode
+from .cohort_timeline import TimelineEngine, replay_lane
 from .config import EngineKind, SimConfig, SyncPolicy
 from .events import PHASES, RegisteredWrite, Segment, TraceBundle, register_phase
+from .interconnect import (
+    InterconnectSpec,
+    Leg,
+    LinkClass,
+    RoutingPolicy,
+    build_fabric,
+    get_fabric,
+    list_fabrics,
+    register_fabric,
+    resolve_fabric,
+)
+from .lockstep import LockstepEngine
 from .memory import AddressMap, DirectoryMemory, TrafficCounters
 from .monitor import MonitorEntry, MonitorLog
 from .perturb import GaussianPerturb, NullPerturb, PeerDelayPerturb
@@ -43,6 +64,7 @@ from .scenario import (
 )
 from .simulator import Eidola, Report, run_gemv_allreduce
 from .target import EidolaDeadlock, TargetDevice
+from .topology import FabricModel, HardwareSpec, Topology
 from .vector_engine import spin_reads
 from .workload import GemvAllReduceWorkload, make_gemv_allreduce_traces
 from .wtt import WriteTrackingTable
@@ -58,6 +80,12 @@ __all__ = [
     "register_scenario", "simulate",
     "Eidola", "Report", "run_gemv_allreduce",
     "EidolaDeadlock", "TargetDevice",
+    "Cluster", "ClusterNode",
+    "FabricModel", "HardwareSpec", "Topology",
+    "InterconnectSpec", "LinkClass", "Leg", "RoutingPolicy",
+    "build_fabric", "get_fabric", "list_fabrics", "register_fabric",
+    "resolve_fabric",
+    "LockstepEngine", "TimelineEngine",
     "GemvAllReduceWorkload", "make_gemv_allreduce_traces",
     "WriteTrackingTable",
     "replay_lane", "spin_reads",

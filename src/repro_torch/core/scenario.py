@@ -1,5 +1,5 @@
 """Scenario API: pluggable per-GPU traffic patterns as data (port of
-``repro/core/scenario.py``, the open loop).
+``repro/core/scenario.py``).
 
 * :class:`PhaseSpec` / :class:`WGProgram` — per-workgroup *phase programs as
   data*: an ordered list of compute/write/wait steps with durations and
@@ -15,12 +15,14 @@
   :class:`repro_torch.core.simulator.Report` out — plus :class:`SweepRunner`,
   which fans one scenario across a parameter grid and engine set.
 
-Only the open loop is ported: one detailed device replays its peers' writes
-from the WTT.  The closed loop (every device detailed in a cluster, flags
-emitted over a fabric model) raises ``NotImplementedError``, as does
-:meth:`Scenario._setup_fabric`.  Built-in scenarios live in
-:mod:`repro_torch.core.scenarios`; importing that package (or calling any
-registry function) registers them.
+A scenario runs open loop (one detailed device replays its peers' writes
+from the WTT) or, where it supports it, closed loop (every device detailed in
+a :class:`repro_torch.core.cluster.Cluster`, flags emitted over a fabric
+model).  ``simulate`` and ``SweepRunner`` take the torch ``device`` a run
+uses; the reference's static analyzer (``repro.analysis``: the sanitizer,
+the verifier and the layout prover) is not ported yet.  Built-in scenarios
+live in :mod:`repro_torch.core.scenarios`; importing that package (or calling
+any registry function) registers them.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from bisect import bisect_right
 from dataclasses import dataclass, fields
 from typing import (
     Callable,
+    ClassVar,
     Dict,
     Iterable,
     Iterator,
@@ -45,6 +48,7 @@ from typing import (
 from ..device import resolve_device
 from .config import EngineKind, SimConfig
 from .events import TraceBundle
+from .interconnect import V5E, FabricLike, HardwareSpec, resolve_fabric
 from .memory import AddressMap
 
 __all__ = [
@@ -68,6 +72,7 @@ __all__ = [
     "SweepPoint",
     "SweepRunner",
     "SIM_CONFIG_FIELDS",
+    "LAYOUT_PROOF_OBLIGATIONS",
 ]
 
 
@@ -127,7 +132,7 @@ class EmitOp:
     """An xGMI write *emitted into a peer device's WTT* when the owning phase
     completes — the closed-loop counterpart of a pre-scheduled trace write.
 
-    In a closed-loop cluster simulation (not yet ported), a completing phase's
+    In a :class:`repro_torch.core.cluster.Cluster` simulation, a completing phase's
     ``emits`` are routed over the fabric model (per-hop latency + egress-link
     serialization/contention) and registered into device ``dst``'s Write
     Tracking Table at the physically-derived arrival time.  Outside a cluster
@@ -583,20 +588,47 @@ class Scenario(abc.ABC):
     ``params`` holds whatever keyword arguments the constructor accepted, for
     reporting.
 
-    The port runs a scenario in the **open loop** (``closed_loop = False``):
-    exactly one detailed device (device 0); peers are eidolons whose writes
-    are synthesized up front by :meth:`traces` and replayed from the WTT.
-    A scenario that sets ``closed_loop`` asks for the reference's closed
-    loop, which is not ported yet.
+    A scenario runs in one of two modes:
+
+    * **open loop** (default, ``closed_loop = False``): exactly one detailed
+      device (device 0); peers are eidolons whose writes are synthesized up
+      front by :meth:`traces` and replayed from the WTT.
+    * **closed loop** (``closed_loop = True``, set by scenarios that support
+      it): every device runs its own phase-program interpreter inside a
+      :class:`repro_torch.core.cluster.Cluster`; flags are *emitted* by completing
+      phases (:class:`EmitOp`) instead of pre-scheduled, so perturbations on
+      one device propagate to the others.  Closed-loop scenarios override
+      :meth:`programs_for`.
     """
 
     name: str = ""
     closed_loop: bool = False  # instances flip this when built closed-loop
+    #: Class-level capability flag: True on scenarios that accept
+    #: ``closed_loop=True`` and run per-rank phase programs in a Cluster.
+    #: Registering such a class records a layout-proof obligation (see
+    #: ``LAYOUT_PROOF_OBLIGATIONS``), which the reference's parametric prover
+    #: (``repro.analysis.layout``, not ported yet) discharges.
+    closed_loop_capable: ClassVar[bool] = False
+    #: Device-count ceiling the layout prover certifies this scenario's
+    #: address layout up to (flag/partial/marker disjointness, unique
+    #: writers, wait coverage, for every constructible n <= max_devices).
+    max_devices: ClassVar[int] = 4096
 
     def __init__(self, cfg: SimConfig, amap: Optional[AddressMap] = None):
         self.cfg = cfg
         self.amap = amap or self.default_amap(cfg)
         self.params: Dict[str, object] = {}
+        # Closed-loop fabric shape: scenarios that take a ``devices_per_node``
+        # knob set this to a tier-explicit Topology (see
+        # ``Topology.for_devices``); the Cluster derives its FabricModel from
+        # it.  ``None`` means the flat single-tier ring over cfg.n_devices.
+        self.topology = None  # type: ignore[assignment]
+        # Pluggable fabric: scenarios built with ``fabric=``/link overrides
+        # resolve an InterconnectSpec here (see :meth:`_setup_fabric`), which
+        # the Cluster prefers over ``topology``.  ``None`` keeps the legacy
+        # topology-derived ring/two_tier shape.
+        self.interconnect = None  # type: ignore[assignment]
+        self.fabric_name: Optional[str] = None
 
     @classmethod
     def default_amap(cls, cfg: SimConfig) -> AddressMap:
@@ -605,12 +637,39 @@ class Scenario(abc.ABC):
         # for any subclass that forgets to re-base a wider pool
         return AddressMap(n_devices=cfg.n_devices).with_partial_clearance()
 
-    def _setup_fabric(self, **fabric_params) -> None:
-        """The closed loop's fabric (topology, interconnect presets, link
-        overrides).  Not ported yet: raises."""
-        raise NotImplementedError(
-            "the closed loop is not ported yet: scenario fabrics (topology and "
-            "interconnect presets) come with it; run the open loop"
+    def _setup_fabric(
+        self,
+        *,
+        devices_per_node: Optional[int] = None,
+        hw: HardwareSpec = V5E,
+        fabric: FabricLike = None,
+        link_bw: Optional[Dict[str, float]] = None,
+        link_latency_ns: Optional[Dict[str, float]] = None,
+        **fabric_params,
+    ) -> None:
+        """Resolve the closed-loop fabric: sets ``self.topology`` (the legacy
+        tier-explicit shape) and — when ``fabric`` names a registered preset
+        (e.g. ``"fat_tree"``), is a ready
+        :class:`repro_torch.core.interconnect.InterconnectSpec`, or any per-class
+        link override is given — ``self.interconnect``, which the
+        :class:`repro_torch.core.cluster.Cluster` prefers.  ``link_bw`` maps link
+        class -> bytes/ns (== GB/s); unknown classes raise, listing the
+        fabric's valid ones."""
+        from .topology import Topology  # late import (topology is heavier)
+
+        n = self.cfg.n_devices
+        self.topology = Topology.for_devices(n, devices_per_node, hw=hw)
+        self.interconnect = resolve_fabric(
+            fabric,
+            n,
+            hw,
+            devices_per_node=devices_per_node,
+            link_bw=link_bw,
+            link_latency_ns=link_latency_ns,
+            **fabric_params,
+        )
+        self.fabric_name = (
+            self.interconnect.name if self.interconnect is not None else None
         )
 
     @abc.abstractmethod
@@ -628,7 +687,8 @@ class Scenario(abc.ABC):
         """Phase programs for one device of a multi-device simulation.
 
         Open-loop scenarios model only device 0, for which this defers to
-        :meth:`programs`.
+        :meth:`programs`; closed-loop scenarios override this with genuinely
+        per-rank programs (whose phases carry :class:`EmitOp`\\ s).
         """
         if self.closed_loop:
             raise NotImplementedError(
@@ -647,8 +707,9 @@ class Scenario(abc.ABC):
         """Seed writes pre-registered into ``device``'s WTT before the run.
 
         Open loop: device 0 gets the full eidolon bundle (:meth:`traces`),
-        peers get nothing.  Closed loop: empty, because flags are emitted by
-        completing phases at run time.
+        peers get nothing — the degenerate case where an eidolon is just a
+        device whose program replays a bundle.  Closed loop: empty by default,
+        because flags are emitted by completing phases at run time.
         """
         if self.closed_loop:
             return TraceBundle(meta={"scenario": self.name, "closed_loop": True})
@@ -672,6 +733,15 @@ class Scenario(abc.ABC):
 
 _REGISTRY: Dict[str, Type[Scenario]] = {}
 
+#: Registration-time layout-proof obligations.  Every closed-loop-capable
+#: scenario registered below must have its address layout *proven* — flag
+#: pool / partial region / marker windows pairwise disjoint, one writer per
+#: flag value epoch, every wait family fed by an earlier emission family —
+#: for all device counts up to its ``max_devices`` bound.  The obligation is
+#: discharged by the reference's ``repro.analysis.layout.prove_registry``;
+#: the port keeps the list only (its prover is not ported yet).
+LAYOUT_PROOF_OBLIGATIONS: List[str] = []
+
 
 def register_scenario(cls: Type[Scenario]) -> Type[Scenario]:
     """Class decorator: register a Scenario subclass under ``cls.name``."""
@@ -681,6 +751,8 @@ def register_scenario(cls: Type[Scenario]) -> Type[Scenario]:
     if existing is not None and existing is not cls:
         raise ValueError(f"scenario {cls.name!r} already registered")
     _REGISTRY[cls.name] = cls
+    if cls.closed_loop_capable and cls.name not in LAYOUT_PROOF_OBLIGATIONS:
+        LAYOUT_PROOF_OBLIGATIONS.append(cls.name)
     return cls
 
 
@@ -723,6 +795,36 @@ def _resolve(scenario: ScenarioLike, cfg: SimConfig, params: Dict) -> Scenario:
     return cls(cfg, **params)
 
 
+def _resolve_shape(
+    devices: Optional[int],
+    nodes: Optional[int],
+    devices_per_node: Optional[int],
+) -> Tuple[Optional[int], Optional[int]]:
+    """Resolve the (devices, devices_per_node) pair from any two of the
+    ``devices`` / ``nodes`` / ``devices_per_node`` knobs."""
+    if nodes is not None and nodes < 1:
+        raise ValueError("nodes must be >= 1")
+    if devices_per_node is not None and devices_per_node < 1:
+        raise ValueError("devices_per_node must be >= 1")
+    if nodes is None:
+        return devices, devices_per_node
+    if devices_per_node is not None:
+        total = nodes * devices_per_node
+        if devices is not None and devices != total:
+            raise ValueError(
+                f"devices={devices} contradicts nodes={nodes} x "
+                f"devices_per_node={devices_per_node}"
+            )
+        return total, devices_per_node
+    if devices is None:
+        raise ValueError(
+            "nodes= needs devices= or devices_per_node= to fix the shape"
+        )
+    if devices % nodes:
+        raise ValueError(f"devices={devices} not divisible by nodes={nodes}")
+    return devices, devices // nodes
+
+
 def simulate(
     scenario: ScenarioLike,
     cfg: Optional[SimConfig] = None,
@@ -730,6 +832,13 @@ def simulate(
     perturb=None,
     collect_segments: bool = True,
     devices: Optional[int] = None,
+    nodes: Optional[int] = None,
+    devices_per_node: Optional[int] = None,
+    sanitize: bool = False,
+    timeline: Optional[bool] = None,
+    lockstep: Optional[bool] = None,
+    _plan_cache=None,
+    _plan_key=None,
     device=None,
     **params,
 ):
@@ -739,21 +848,62 @@ def simulate(
     Scenario subclass, or a ready-built instance (whose own cfg is then used;
     passing a *different* cfg alongside an instance is an error).  Extra
     keyword arguments are forwarded to the scenario constructor (e.g.
-    ``flag_delays_ns=...`` for ``gemv_allreduce``).
+    ``flag_delays_ns=...`` for ``gemv_allreduce``, or ``closed_loop=True``
+    for the scenarios that support running every device in detail).
 
     ``devices`` overrides the total device count (``cfg.n_egpus`` becomes
-    ``devices - 1``).  ``device`` is the torch device the vector engine's
-    tensors live on: ``None`` is the CUDA device (an error without a card),
-    ``"cpu"`` the host; it is resolved before anything is built.
+    ``devices - 1``), e.g. ``simulate("ring_allreduce", cfg, devices=8,
+    closed_loop=True)``.
 
-    The single-detailed-device :class:`repro_torch.core.simulator.Eidola`
-    replay path runs the scenario and returns its
-    :class:`repro_torch.core.simulator.Report`.  A scenario built closed-loop
-    raises ``NotImplementedError``: the cluster is not ported yet.
+    ``nodes`` / ``devices_per_node`` fix the tiered fabric shape: any two of
+    (``devices``, ``nodes``, ``devices_per_node``) determine the third, and
+    the resolved ``devices_per_node`` is forwarded to the scenario (which
+    builds its :class:`repro_torch.core.topology.Topology` from it), e.g.
+    ``simulate("hierarchical_allreduce", nodes=4, devices_per_node=4)``.
+
+    ``fabric=`` (a registered interconnect preset name such as
+    ``"fat_tree"`` or ``"rail_optimized"``, or a ready
+    :class:`repro_torch.core.interconnect.InterconnectSpec`) and ``link_bw=``
+    (per-link-class bandwidth overrides, validated) are ordinary scenario
+    parameters on every closed-loop scenario — the same workload runs over
+    any fabric, e.g. ``simulate("all_to_all", devices=16, nodes=4,
+    closed_loop=True, fabric="rail_optimized")``.
+
+    Scenarios built with ``closed_loop=True`` run in a
+    :class:`repro_torch.core.cluster.Cluster` (every device program-driven, flags
+    routed over the fabric); otherwise the single-detailed-device
+    :class:`repro_torch.core.simulator.Eidola` replay path is used.  Both return a
+    :class:`repro_torch.core.simulator.Report`.
+
+    ``sanitize=True`` (closed loop only) asks for the reference's traffic
+    sanitizer (``repro.analysis``), which is not ported yet: the cluster
+    raises ``NotImplementedError``.
+
+    ``timeline`` (closed loop only) selects the pod-scale timeline engine
+    (:mod:`repro_torch.core.cohort_timeline`): ``None`` (default) auto-enables it
+    whenever the lockstep-lane invariant holds, ``True`` requires it (error
+    when ineligible), ``False`` always uses the per-phase interpreter.
+
+    ``lockstep`` (closed loop only) is the same tri-state for the bulk
+    lockstep solvers, which substitute for the timeline engine — whole
+    loops advance as closed forms instead of per-phase interpretation.
+    The flat solver (:mod:`repro_torch.core.lockstep`) covers globally
+    rank-uniform programs on the single-tier ring; the reference's tiered
+    solver (``lockstep_tiered``, for the ``two_tier``, ``fat_tree`` and
+    ``rail_optimized`` presets) is not ported yet, so those run the timeline
+    engine.  ``Report.meta["lockstep_reason"]`` records either ``"engaged"``
+    or the exact reason the solver declined.
+
+    ``device`` is the torch device the vector engine's and the flat lockstep
+    solver's tensors live on: ``None`` is the CUDA device (an error without a
+    card), ``"cpu"`` the host; it is resolved before anything is built.
     """
     from .simulator import Eidola  # late import: simulator imports target
 
     device = resolve_device(device)
+    devices, dpn = _resolve_shape(devices, nodes, devices_per_node)
+    if dpn is not None:
+        params.setdefault("devices_per_node", dpn)
     if devices is not None:
         cfg = (cfg or SimConfig()).with_devices(devices)
     if isinstance(scenario, Scenario):
@@ -769,9 +919,34 @@ def simulate(
     cfg = (cfg or SimConfig()).validate()
     sc = _resolve(scenario, cfg, params)
     if sc.closed_loop:
-        raise NotImplementedError(
-            f"scenario {sc.name!r} was built closed-loop: the closed loop "
-            "(every device detailed in a cluster) is not ported yet"
+        from .cluster import Cluster  # late import: cluster imports target
+
+        return Cluster(
+            cfg,
+            sc,
+            perturb=perturb,
+            collect_segments=collect_segments,
+            sanitize=sanitize,
+            timeline=timeline,
+            lockstep=lockstep,
+            plan_cache=_plan_cache,
+            plan_key=_plan_key,
+            device=device,
+        ).run()
+    if sanitize:
+        raise ValueError(
+            "sanitize=True requires a closed-loop scenario (the sanitizer "
+            "shadows the cluster's fabric and directory accounting)"
+        )
+    if timeline is True:
+        raise ValueError(
+            "timeline=True requires a closed-loop scenario (the timeline "
+            "engine drives a Cluster of lockstep lanes)"
+        )
+    if lockstep is True:
+        raise ValueError(
+            "lockstep=True requires a closed-loop scenario (the bulk solver "
+            "advances a Cluster of rank-uniform symbolic programs)"
         )
     return Eidola(
         cfg,
@@ -821,9 +996,10 @@ class SweepRunner:
     """Fan one scenario across a parameter grid and a set of engines.
 
     Grid keys naming :class:`SimConfig` fields become config overrides; all
-    other keys are forwarded to the scenario constructor (``devices`` is
-    sugar for ``n_egpus = devices - 1``).  The cross product of the grid runs
-    once per engine, on ``device`` (resolved here, as :func:`simulate` does).
+    other keys are forwarded to the scenario constructor (``devices`` and
+    ``nodes`` are sugar for the fabric shape, as in :func:`simulate`).  The
+    cross product of the grid runs once per engine, on ``device`` (resolved
+    here, as :func:`simulate` does).
     """
 
     def __init__(
@@ -844,6 +1020,12 @@ class SweepRunner:
         self.engines = tuple(engines)
         self.perturb = perturb
         self.collect_segments = collect_segments
+        # compiled lockstep plans keyed by the point's full (scenario,
+        # engine, config, params) identity; plans are read-only at run
+        # time, so revisiting a shape (e.g. sweeping a non-structural
+        # parameter per repeat) skips recompilation.  Perturbed sweeps
+        # bypass the cache: a perturbation may reroute the run entirely.
+        self._plan_cache: Dict[tuple, object] = {}
 
     def run(self, grid: Optional[Dict[str, Iterable]] = None, **grid_kw) -> List[SweepPoint]:
         grid = dict(grid or {})
@@ -853,18 +1035,42 @@ class SweepRunner:
         points: List[SweepPoint] = []
         for combo in combos:
             assignment = dict(zip(keys, combo))
-            devices = assignment.pop("devices", None)
+            # "devices"/"nodes" are sugar for the fabric shape (as in
+            # simulate()); the resolved devices_per_node stays a scenario
+            # parameter so it reaches the constructor and the sweep row
+            devices, dpn = _resolve_shape(
+                assignment.pop("devices", None),
+                assignment.pop("nodes", None),
+                assignment.get("devices_per_node"),
+            )
+            if dpn is not None:
+                assignment["devices_per_node"] = dpn
             overrides = {k: v for k, v in assignment.items() if k in SIM_CONFIG_FIELDS}
             if devices is not None:
                 overrides["n_egpus"] = SimConfig().with_devices(devices).n_egpus
             params = {k: v for k, v in assignment.items() if k not in SIM_CONFIG_FIELDS}
             for eng in self.engines:
                 cfg = self.base_cfg.with_(engine=eng, **overrides)
+                plan_key = (
+                    (
+                        self.scenario_cls.name,
+                        repr(cfg),
+                        tuple(
+                            sorted((k, repr(v)) for k, v in params.items())
+                        ),
+                    )
+                    if self.perturb is None
+                    else None
+                )
                 report = simulate(
                     self.scenario_cls,
                     cfg,
                     perturb=self.perturb,
                     collect_segments=self.collect_segments,
+                    _plan_cache=(
+                        self._plan_cache if plan_key is not None else None
+                    ),
+                    _plan_key=plan_key,
                     device=self.device,
                     **params,
                 )

@@ -52,7 +52,7 @@ from __future__ import annotations
 import heapq
 import math
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from .config import SimConfig, SyncPolicy
 from .events import RegisteredWrite, Segment
@@ -162,13 +162,20 @@ class _Cohort:
 class TargetDevice:
     """One detailed device of an Eidola simulation.
 
-    This is the open loop's single device 0.  The closed-loop cluster (the
-    reference's ``repro.core.cluster.Cluster``, not yet ported) makes every
-    device one of these; its per-device id and emit hook come with it.
-    Until then a phase's :class:`repro_torch.core.scenario.EmitOp` entries
-    are inert, as they are in the reference's open loop.
+    In the classic open-loop configuration this is the single device 0; in a
+    closed-loop :class:`repro_torch.core.cluster.Cluster` every device is one
+    of these, each with its own ``device_id``, :class:`DirectoryMemory`,
+    :class:`MonitorLog`, and Write Tracking Table.  ``emit_sink`` (set by the
+    cluster) receives phase-completion
+    :class:`repro_torch.core.scenario.EmitOp` notifications — called once per
+    cohort with the member ``count`` so the sink can replay per-workgroup
+    semantics in closed form; without a sink, emits are inert (open-loop
+    degenerate case).
 
-    ``scenario`` provides the phase programs via ``programs_for(0)``.
+    ``scenario`` provides the phase programs via ``programs_for(device_id)``.
+
+    ``cohorts=False`` forces singleton cohorts (the pre-batching per-workgroup
+    interpreter); the equivalence tests drive both modes against each other.
     """
 
     def __init__(
@@ -178,6 +185,12 @@ class TargetDevice:
         memory: DirectoryMemory,
         monitor_log: Optional[MonitorLog] = None,
         perturb=None,
+        *,
+        device_id: int = 0,
+        emit_sink: Optional[
+            Callable[[int, int, int, "PhaseSpec", int, int], None]
+        ] = None,
+        cohorts: bool = True,
     ):
         self.cfg = cfg
         self.scenario = scenario
@@ -187,7 +200,8 @@ class TargetDevice:
         if cfg.sync == SyncPolicy.SYNCMON and monitor_log is None:
             raise ValueError("SYNCMON policy requires a MonitorLog")
         self.perturb = perturb
-        self.device_id = 0
+        self.device_id = int(device_id)
+        self.emit_sink = emit_sink
 
         programs = sorted(scenario.programs_for(self.device_id), key=lambda p: p.wg)
         if [p.wg for p in programs] != list(range(len(programs))):
@@ -202,7 +216,7 @@ class TargetDevice:
         # dispatch cycle and phases) batch even when interleaved; the CU only
         # affects the coalesced-validation-read accounting, which is scored
         # from the per-member CU list at wake time.
-        batch = perturb is None
+        batch = cohorts and perturb is None
         # (first_program, member_wgs, member_cus) triples, frozen below
         groups: List[Tuple[WGProgram, List[int], List[int]]] = []
         if batch and cfg.sync == SyncPolicy.SPIN:
@@ -370,6 +384,10 @@ class TargetDevice:
             t.write_bytes += d[3] * n
             t.xgmi_writes_out += d[4] * n
             t.xgmi_bytes_out += d[5] * n
+        if spec.emits and self.emit_sink is not None:
+            self.emit_sink(
+                self.device_id, c.program.wg, c.phase_idx, spec, end, c.count
+            )
 
     # ------------------------------------------------------------------
     # the program interpreter

@@ -743,3 +743,51 @@ def test_vector_engine_on_the_card_equals_the_host_engines(cuda):
                 assert fields(card, engine_specific) == \
                     fields(run[(EngineKind.EVENT, "cpu")], engine_specific)
                 assert card.nonflag_reads == 65_792 and type(card.flag_reads) is int
+
+
+def test_ordered_scan_kernel_adds_in_order(cuda):
+    """One thread a column, left to right: equal to np.add.accumulate on
+    columns where any other order gives another result."""
+    from repro_torch.kernels.ordered_scan import ordered_scan_cuda, ordered_scan_ref
+
+    rng = np.random.default_rng(0)
+    for rows, cols in ((1, 1), (3, 1000), (2049, 4096), (4096, 1), (257, 5)):
+        x = rng.standard_normal((rows, cols))
+        x[0::4] += 1e16
+        x[1::4] = 1.0
+        x[2::4] -= 1e16
+        before = ordered_scan_cuda.launches
+        got = ordered_scan_cuda(torch.from_numpy(x).to(cuda))
+        assert ordered_scan_cuda.launches == before + 1
+        want = np.add.accumulate(x, axis=0)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+        np.testing.assert_array_equal(ordered_scan_ref(torch.from_numpy(x)).numpy(), want)
+
+
+@pytest.mark.parametrize("name", ["ring_allreduce", "all_to_all"])
+def test_flat_lockstep_solver_on_the_card_equals_the_cpu(cuda, name):
+    """256 ranks closed-loop on the flat ring: the solver's tensors on the
+    card give the CPU solver's report on every field but the walls, and the
+    card run launches the ordered scan."""
+    import dataclasses
+
+    from repro_torch.core import EngineKind, SimConfig, simulate
+    from repro_torch.kernels.ordered_scan import ordered_scan_cuda
+
+    def fields(report):
+        d = dataclasses.asdict(report)
+        d.pop("wall_time_s")
+        d["meta"].pop("wall_breakdown")
+        d["meta"]["program_stats"].pop("construct_wall_s")
+        return d
+
+    cfg = SimConfig(engine=EngineKind.EVENT, workgroups=64)
+    reports = {}
+    for dev in ("cpu", cuda):
+        before = ordered_scan_cuda.launches
+        reports[str(dev)] = simulate(name, cfg, devices=256, closed_loop=True,
+                                     collect_segments=False, device=dev)
+        launched = ordered_scan_cuda.launches - before
+        assert (launched > 0) == (dev == cuda)
+    assert reports["cuda"].meta["lockstep_reason"] == "engaged"
+    assert fields(reports["cuda"]) == fields(reports["cpu"])

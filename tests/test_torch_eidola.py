@@ -435,13 +435,15 @@ def test_cli_summary_lines_equal_the_reference():
     assert len(mask(port.stdout)) == 3
 
 
-@pytest.mark.parametrize("flags", [["--detailed", "all"], ["--nodes", "2"], ["--verify"],
-                                   ["--fabric", "fat_tree", "--link", "spine=3.125"]])
+@pytest.mark.parametrize("flags", [["--verify"], ["--prove-layout"], ["--sanitize"],
+                                   ["--sanitize", "--detailed", "all", "--devices", "4"]])
 def test_cli_refuses_closed_loop_flags(flags, capsys):
+    # the closed loop is ported; the flags of the reference's static analyzer
+    # (repro.analysis) are not
     with pytest.raises(SystemExit) as err:
         port_cli.main(["--device", "cpu", *flags])
     assert str(err.value.code).startswith(f"error: {flags[0]}")
-    assert "not ported yet" in str(err.value.code)
+    assert "not ported yet (slice 5d)" in str(err.value.code)
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -461,10 +463,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_closed_loop_raises_not_implemented():
-    class Closed(P.get_scenario("gemv_allreduce")):
-        closed_loop = True
-
-    with pytest.raises(NotImplementedError, match="closed loop"):
-        P.simulate(Closed(P.SimConfig()), device="cpu")
+    # the closed loop runs now (tests/test_torch_cluster.py); what it still
+    # refuses is the reference's sanitizer, which is not ported
+    cfg = P.SimConfig(workgroups=8).with_devices(4)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        P.get_scenario("gemv_allreduce")(P.SimConfig())._setup_fabric(fabric="fat_tree")
+        P.simulate("ring_allreduce", cfg, closed_loop=True, sanitize=True, device="cpu")
+    sc = P.get_scenario("gemv_allreduce")(P.SimConfig())
+    sc._setup_fabric(fabric="fat_tree")
+    assert sc.fabric_name == "fat_tree" and sc.interconnect.n_devices == 4

@@ -37,11 +37,13 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env, check=True,
                          capture_output=True, text=True, timeout=120).stdout.split()
     assert out == [str(expected), "[]"]
-    assert expected >= 82  # every module of the slices so far was walked: moe.py and
+    assert expected >= 90  # every module of the slices so far was walked: moe.py and
     # the ten configs of the attention-family slice, ssm.py and xlstm.py, the
     # training slice's optim, data, checkpoint, ft, training and launch.train,
     # the sharded substrate's sharding, zero, remat, pipeline, moe_ep and mesh,
-    # and the open-loop simulator's twelve core modules and its command line
+    # the open-loop simulator's twelve core modules and its command line, and
+    # the closed loop's cluster, lockstep, egpu, four scenarios and the
+    # ordered scan
     assert {"repro_torch.models.ssm", "repro_torch.models.xlstm", "repro_torch.optim.adamw",
             "repro_torch.data.pipeline", "repro_torch.checkpoint.store",
             "repro_torch.ft.resilience", "repro_torch.training.trainer",
@@ -54,7 +56,13 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.core.scenarios.gemv_allreduce", "repro_torch.core.workload",
             "repro_torch.core.target", "repro_torch.core.engine",
             "repro_torch.core.simulator", "repro_torch.core.trace_render",
-            "repro_torch.launch.scenario"} <= {
+            "repro_torch.launch.scenario", "repro_torch.core.cluster",
+            "repro_torch.core.lockstep", "repro_torch.core.egpu",
+            "repro_torch.core.cohort_timeline", "repro_torch.core.interconnect",
+            "repro_torch.core.topology", "repro_torch.core.scenarios.ring_allreduce",
+            "repro_torch.core.scenarios.all_to_all", "repro_torch.core.scenarios.pipeline_p2p",
+            "repro_torch.core.scenarios.hierarchical_allreduce",
+            "repro_torch.kernels.ordered_scan"} <= {
         m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
 
 

@@ -7,6 +7,11 @@ against the counters of a real closed-loop run; ``spin_reads`` against
 branch.  Every comparison is exact: the arithmetic is integer on both sides
 (the JAX scans' int32 / float32 are exact at these sizes, except the one
 float32 rounding of ``spin_reads_jax`` that a test below pins down).
+
+The port's ``TimelineEngine`` (the closed loop's lockstep lanes, a host
+interpreter) is held to the reference's on every field but the walls, flat
+and on the presets, with and without segments, and to the port's own event
+engine; ``lane_step_arrays`` and ``replay_lane_numpy`` to the reference's.
 """
 
 import numpy as np
@@ -142,3 +147,94 @@ def test_scans_run_on_the_card_unless_asked_for_the_cpu(monkeypatch):
         replay_lane([0], [True], [10], poll=4, check=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         spin_reads([0], [10], 4, 1)
+
+
+# ---------------------------------------------------------------------------
+# the timeline engine (the closed loop's lockstep lanes, on the host)
+# ---------------------------------------------------------------------------
+
+TIMELINE_CASES = [  # (scenario, devices, fabric keywords)
+    ("ring_allreduce", 8, {}), ("all_to_all", 16, {"nodes": 4, "fabric": "fat_tree"}),
+    ("pipeline_p2p", 8, {"nodes": 2}), ("hierarchical_allreduce", 16, {"nodes": 4}),
+    ("ring_allreduce", 16, {"fabric": "torus2d"}),
+    ("all_to_all", 8, {"nodes": 2, "fabric": "rail_optimized"}),
+]
+
+
+def _closed(M, name, devices, *, segments, **kw):
+    import repro_torch.core as P
+
+    cfg = M.SimConfig(workgroups=12, n_cus=4)
+    if M is P:
+        kw["device"] = "cpu"
+    return M.simulate(name, cfg, devices=devices, closed_loop=True, lockstep=False,
+                      collect_segments=segments, **kw)
+
+
+def _report_fields(report) -> dict:
+    import dataclasses
+
+    d = dataclasses.asdict(report)
+    d.pop("wall_time_s")
+    d["meta"].pop("wall_breakdown", None)
+    d["meta"]["program_stats"].pop("construct_wall_s")
+    return d
+
+
+@pytest.mark.parametrize("segments", (True, False))
+@pytest.mark.parametrize("case", TIMELINE_CASES, ids=lambda c: f"{c[0]}-{c[1]}-{len(c[2])}")
+def test_timeline_engine_equals_the_reference_and_the_event_engine(case, segments):
+    import repro.core as R
+    import repro_torch.core as P
+
+    name, devices, kw = case
+    ref = _closed(R, name, devices, segments=segments, timeline=True, **kw)
+    port = _closed(P, name, devices, segments=segments, timeline=True, **kw)
+    assert port.meta["engine_impl"] == "timeline" and port.engine == "event"
+    assert _report_fields(port) == _report_fields(ref)
+    # the timeline engine is the event engine's semantics: the same report
+    # but for its implementation's name and the head polls
+    event = _report_fields(_closed(P, name, devices, segments=segments, timeline=False, **kw))
+    mine = _report_fields(port)
+    for d in (event, mine):
+        d.pop("wtt_head_polls")
+        d["meta"].pop("engine_impl")
+        d["meta"].pop("lockstep_reason")
+        d["meta"]["program_stats"].pop("materialized_phases")
+    assert mine == event
+
+
+def test_timeline_refusals_equal_the_reference():
+    import repro.core as R
+    import repro_torch.core as P
+
+    msgs = []
+    for M in (R, P):
+        cfg = M.SimConfig(workgroups=12, sync=M.SyncPolicy.SYNCMON).with_devices(4)
+        sc = M.get_scenario("ring_allreduce")(cfg, closed_loop=True)
+        kw = {"device": "cpu"} if M is P else {}
+        with pytest.raises(ValueError) as err:
+            M.Cluster(cfg, sc, timeline=True, **kw).run()
+        msgs.append(str(err.value))
+    assert msgs[1] == msgs[0] and "lanes require SPIN" in msgs[1]
+
+
+def test_lane_step_arrays_equal_the_reference():
+    from repro_torch.core import cohort_timeline as port_tl
+
+    cfg = SimConfig(workgroups=12, n_cus=4)
+    sc = RingAllReduceScenario(cfg)
+    sc.closed_loop = True
+    cl = Cluster(cfg, sc, timeline=True)
+    cl.run()
+    rng = np.random.default_rng(11)
+    for node in cl.nodes:
+        phases = node.target.cohorts[0].phases
+        w_ref, v_ref = lane_step_arrays(phases, node.target.flag_set_cycle)
+        w_pt, v_pt = port_tl.lane_step_arrays(phases, node.target.flag_set_cycle)
+        np.testing.assert_array_equal(w_pt, w_ref)
+        np.testing.assert_array_equal(v_pt, v_ref)
+        dispatch = rng.integers(0, 300, 5)
+        for a, b in zip(port_tl.replay_lane_numpy(dispatch, w_pt, v_pt, poll=64, check=4),
+                        replay_lane_numpy(dispatch, w_ref, v_ref, poll=64, check=4)):
+            np.testing.assert_array_equal(a, b)
