@@ -6,8 +6,9 @@ Run from the repository root on a machine with a CUDA device (an H100):
 
 Phases, each printing one JSON line:
   device   the card's name and power limit (nvidia-smi) and torch's view of it;
-  build    nvcc builds the four kernels, the ordered scan and the empty
-           launch-floor kernel (ptxas register / shared-memory lines);
+  build    nvcc builds the four kernels, the solvers' ordered scan, port
+           chain and numpy sum, and the empty launch-floor kernel (ptxas
+           register / shared-memory lines);
   kernels  each kernel against its plain version at its path's shapes (and
            gemv / gemv_tiles at the reference's sweeps, in both layouts of A),
            timed with CUDA events beside the plain version and a library call;
@@ -28,7 +29,14 @@ Phases, each printing one JSON line:
            rmsnorm against its plain version at every width the port's norms
            take, bf16 and float32; decode_attention at the head layout of each
            GQA config of the families phase and of zamba2-2.7b's shared block
-           (32, 32, 80) beside SDPA (S 40 and 544);
+           (32, 32, 80) beside SDPA (S 40 and 544); the ordered scan bit for
+           bit against its plain version at the flat solver's shapes; at the
+           end, in the closed loop's process (below), a second kernels line:
+           the port chain at 256 ports of 65,280 touches (fat_tree's up
+           ports at 4,096 devices) and numpy's sum at every length 1-8,193
+           and at 65,280, bit for bit against their plain versions, each
+           rejecting a faulty control (a pairwise queued sum; a left-to-right
+           sum);
   gemv_allreduce  the fused GEMV+AllReduce and the unfused psum_matmul on 4
            ranks (4 processes sharing the card, a gloo group exchanging
            through host memory) at the paper's Table-1 shape and at
@@ -36,23 +44,29 @@ Phases, each printing one JSON line:
            its result, its owner_served schedule and its kernel launches;
   scans    the Eidola model's replay_lane and spin_reads on the card against
            their numpy closed forms, exactly;
-  cluster  the closed-loop simulator (slice 5b): the 106 rows of
-           BENCH_multi_device.json (the reference's own record of its
-           counters) that this slice reproduces, 4 scenarios x 4-4096
-           devices x flat / two_tier / fat_tree / rail_optimized at 64
-           workgroups under SPIN: every flat row, the tiered ring_allreduce,
-           all_to_all and hierarchical_allreduce rows up to 64 devices and
-           every tiered pipeline_p2p row.  Flat ring_allreduce and all_to_all
-           run through the flat lockstep solver with its tensors on the card
-           (the ordered scan's launches counted), every other row through the
-           host timeline engine.  Each row's counters (flag and non-flag
-           reads, xGMI writes in, WTT enacted, kernel span, cycles) must equal
-           the record exactly; the card solver's report must equal the CPU
-           solver's at every flat count, field for field but the walls, and
-           the host timeline engine's counters up to 256 ranks; a result with
-           one flag read added must be rejected.  One line a scenario (each
-           row's wall on the card and on the CPU, or on the host for the host
-           engine's rows) and a phase line;
+  cluster  last, with the analysis phase and the tiered kernels' checks, in
+           a spawned process of its own: the closed-loop simulator, all 144
+           rows of BENCH_multi_device.json (the reference's own record of its
+           counters), 4 scenarios x 4-4096 devices x flat / two_tier /
+           fat_tree / rail_optimized at 64 workgroups under SPIN.  Every row
+           the record shows engaged runs a lockstep solver with its tensors on
+           the card: the flat one on the single-tier ring (the ordered scan),
+           the tiered one on the tiered presets (the port chain, numpy's sum
+           and the ordered scan); every other row runs the host timeline
+           engine.  Each row's counters (flag and non-flag reads, xGMI writes
+           in, WTT enacted, kernel span, cycles) and its lockstep reason must
+           equal the record exactly; the card solver's report must equal the
+           CPU solver's up to 1,024 devices, field for field but the walls,
+           and the host timeline engine's counters up to 256; each of the
+           three solver kernels must have launched; a result with one flag
+           read added must be rejected.  The host runs go to 6 worker
+           processes beside the card's rows.  One line a scenario (each
+           row's wall, compile and solve time on the card and on the CPU, or
+           on the host for the host engine's rows) and a phase line;
+  analysis the port's static analyzer gate, python -m repro_torch.analysis at
+           its defaults (verifier, timeline path on the card, loop-space
+           verifier at 1,024 devices, layout prover up to 4,096): its four
+           summary lines, each "ok";
   eidola   the open-loop Eidola simulator (repro_torch.core) at the paper's
            Table 1 (4 CUs, 3 eGPUs, 208 workgroups, M 256, K 8192): Fig. 6
            (SPIN, flag delays 0-40 us in steps of 5), Fig. 9 (SYNCMON with
@@ -225,6 +239,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import subprocess
 import sys
@@ -263,7 +278,15 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel's pallas_call site)
     # busy chains and queued sums with numpy's sequential np.cumsum
     "ordered_scan": ("src/repro_torch/kernels/csrc/ordered_scan.cu",
                      "src/repro/core/lockstep.py:828"),
+    # the port's own kernels: the reference's tiered lockstep solver prices a
+    # port's touches with _chain (the scalar busy recurrence) and adds its
+    # queued times with numpy's pairwise float(q.sum())
+    "port_chain": ("src/repro_torch/kernels/csrc/port_chain.cu",
+                   "src/repro/core/lockstep_tiered.py:1390"),
+    "numpy_sum": ("src/repro_torch/kernels/csrc/numpy_sum.cu",
+                  "src/repro/core/lockstep_tiered.py:1400"),
 }
+SOLVER_KERNELS = ("ordered_scan", "port_chain", "numpy_sum")  # the cluster phase's
 SERVE_KERNELS = ("rmsnorm", "decode_attention")  # the serve paths'; gemv's run in
 # the kernels and gemv_allreduce phases
 # the serve paths: slice 1's gemma3-1b, and this slice's main path, olmoe-1b-7b
@@ -472,6 +495,38 @@ def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def in_spawned_process(fn, *args):
+    """``fn(*args)`` in a spawned process of its own, which has its own CUDA
+    context.  For the lockstep solvers' work, which runs last: after it
+    (millions of small launches, the plain versions' among them), later
+    profiles of other kernels on an H100 missed launches (20 calls seen as
+    19, or none seen), so it runs where no profile follows it."""
+    import concurrent.futures
+    import multiprocessing
+
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        return pool.submit(fn, *args).result()
+
+
+def launch_ms(fn, iters: int = 10) -> float:
+    """Mean device time of one call by CUDA events recorded right around it,
+    one call at a time: for a kernel far longer than its dispatch, where the
+    profiler dropped some of the launches it was given."""
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
 
 
 def bound_ms(bytes_moved: float, ops: float, dtype: str) -> tuple[float, str]:
@@ -1501,6 +1556,123 @@ def _ordered_scan_at(gen: torch.Generator) -> dict:
             "library_device_ms": same_run["library"]}
 
 
+
+# the tiered solver's shapes at 4,096 devices on fat_tree (16 a node, 256
+# nodes): one node's up port carries 16 x 4,080 touches, and one dependency
+# level prices every node's up port in one launch
+PORT_CHAIN_TOUCHES = 16 * 4080
+PORT_CHAIN_LEVEL = 256
+# numpy's sum: every length from 1 to one block past numpy's 8,192, and the
+# longest chunk (one up port's queued times)
+NUMPY_SUM_LENGTHS = (*range(1, 8194), PORT_CHAIN_TOUCHES)
+
+
+def _port_chain_at(gen: torch.Generator) -> dict:
+    """Kernel A against its plain version, bit for bit (starts, busy and
+    queued times), at a level of 256 ports of the solver's longest chain; a
+    control whose queued sum is added pairwise (numpy_sum) must be rejected.
+    Timed at that shape beside the plain version (the checked call); no
+    single PyTorch call computes a max-plus chain."""
+    from repro_torch.kernels.numpy_sum import numpy_sum_cuda
+    from repro_torch.kernels.port_chain import port_chain_cuda, port_chain_ref
+
+    def case(n_ports):
+        k = PORT_CHAIN_TOUCHES
+        ser = 0.5 + torch.rand(n_ports, generator=gen, device="cuda", dtype=torch.float64)
+        # arrivals in queue order, a little faster than the port drains them:
+        # busy runs with restarts between
+        rdy = torch.rand(n_ports, k, generator=gen, device="cuda", dtype=torch.float64)
+        rdy = (rdy.sort(dim=1).values * (0.9 * k) * ser[:, None]).flatten()
+        offs = torch.arange(0, (n_ports + 1) * k, k, device="cuda")
+        port = torch.randperm(4 * n_ports, generator=gen, device="cuda")[:n_ports]
+        busy = torch.rand(4 * n_ports, generator=gen, device="cuda", dtype=torch.float64)
+        qd = torch.rand(4 * n_ports, generator=gen, device="cuda", dtype=torch.float64)
+        return rdy, offs, port, ser, busy, qd
+
+    rdy, offs, port, ser, busy, qd = case(PORT_CHAIN_LEVEL)
+    qd0 = qd[port].clone()
+    busy_k, qd_k = busy.clone(), qd.clone()
+    got = port_chain_cuda(rdy, offs, port, ser, busy_k, qd_k)
+    ran = {}  # the plain version runs once, timed: it advances busy and qd
+    plain_ms = time_ms(lambda: ran.setdefault("plain", port_chain_ref(
+        rdy, offs, port, ser, busy, qd)), iters=1, warmup=0)
+    if not (torch.equal(got, ran["plain"]) and torch.equal(busy_k, busy)
+            and torch.equal(qd_k, qd)):
+        raise AssertionError(f"port_chain at {PORT_CHAIN_LEVEL} x {PORT_CHAIN_TOUCHES} "
+                             "touches differs from its plain version")
+    # the control adds each port's queued times pairwise, then onto its total
+    control = qd0 + numpy_sum_cuda(got - rdy, offs)
+    rejected = int((control != qd_k[port]).sum())
+    if rejected == 0:
+        raise AssertionError("port_chain: a pairwise queued sum went unnoticed")
+    checks = {"ports": PORT_CHAIN_LEVEL, "touches_per_port": PORT_CHAIN_TOUCHES, "exact": True,
+              "control_pairwise_queued_sum_ports_off": rejected}
+    T = rdy.numel()
+    # each ready time read once, each start written once; max, sub, add, add
+    b_ms, b_by = bound_ms(T * 16, 4 * T, "float64")
+    call = lambda: port_chain_cuda(rdy, offs, port, ser, busy, qd)  # noqa: E731
+    return {"shape": [PORT_CHAIN_LEVEL, PORT_CHAIN_TOUCHES], "dtype": "float64",
+            "checks": checks, "max_abs_err": 0.0,
+            "ms": time_ms(call, iters=10, warmup=2), "plain_ms": plain_ms,
+            "library_ms": None, "library": "none: no PyTorch call computes a max-plus chain",
+            "bound_ms": b_ms, "bound_by": b_by, "device_ms": launch_ms(call, iters=3),
+            "device_ms_by": "CUDA events around each launch", "library_device_ms": None}
+
+
+def _numpy_sum_at(gen: torch.Generator) -> dict:
+    """Kernel B against its plain version, bit for bit, at every length from
+    1 to 8,193 and at the solver's longest chunk (65,280), and against this
+    machine's np.sum up to 8,192; a left-to-right sum, the control, must
+    differ.  Timed at the longest chunk beside the plain version and
+    torch.sum.
+
+    The port reproduces the reference's numpy (2.0), which sums a
+    contiguous vector in blocks of 8,192 elements; numpy 2.3 sums it in one
+    pairwise tree, so above 8,192 elements this machine's np.sum may differ
+    from both in the last bit.  The plain version is held to numpy 2.0's
+    np.sum at every length in the CPU tests (tests/test_torch_tiered.py)."""
+    from repro_torch.kernels.numpy_sum import BLOCK, numpy_sum_cuda, numpy_sum_ref
+
+    lens = torch.tensor(NUMPY_SUM_LENGTHS)
+    offs = torch.zeros(len(lens) + 1, dtype=torch.int64)
+    torch.cumsum(lens, 0, out=offs[1:])
+    # magnitudes over eight decades: any other order of the adds shows
+    x = torch.rand(int(offs[-1]), generator=gen, device="cuda", dtype=torch.float64)
+    x *= 10.0 ** torch.randint(-4, 4, x.shape, generator=gen, device="cuda")
+    offs_d = offs.cuda()
+    got = numpy_sum_cuda(x, offs_d)
+    plain = numpy_sum_ref(x, offs_d)
+    xh, oh = x.cpu().numpy(), offs.tolist()
+    segs = [xh[oh[i]:oh[i + 1]] for i in range(len(lens))]
+    want = np.array([np.sum(v) for v in segs])
+    if not torch.equal(got, plain):
+        raise AssertionError("numpy_sum differs from its plain version")
+    blocked = lens.numpy() <= BLOCK  # one pairwise tree in every numpy version
+    got_h = got.cpu().numpy()
+    if not np.array_equal(got_h[blocked], want[blocked]):
+        raise AssertionError("numpy_sum differs from np.sum at 8,192 elements or fewer")
+    left_to_right = np.array([np.add.accumulate(v)[-1] for v in segs])
+    off = int((left_to_right != got_h).sum())
+    if off == 0:
+        raise AssertionError("numpy_sum: a left-to-right sum went unnoticed")
+    one = x[oh[-2]:oh[-1]]
+    one_offs = torch.tensor([0, one.numel()], device="cuda")
+    n = one.numel()
+    b_ms, b_by = bound_ms(n * 8 + 8, n, "float64")
+    return {"shape": [n], "dtype": "float64", "max_abs_err": 0.0,
+            "checks": {"segments": len(lens), "elements": int(offs[-1]), "exact": True,
+                       "control_left_to_right_segments_off": off, "numpy": np.__version__,
+                       "np_sum_off_above_8192": int((got_h[~blocked] != want[~blocked]).sum()),
+                       "all_segments_ms": time_ms(lambda: numpy_sum_cuda(x, offs_d), iters=10,
+                                                  warmup=2)},
+            "ms": time_ms(lambda: numpy_sum_cuda(one, one_offs), iters=50, warmup=5),
+            "plain_ms": time_ms(lambda: numpy_sum_ref(one, one_offs), iters=3, warmup=1),
+            "library_ms": time_ms(lambda: torch.sum(one), iters=50, warmup=5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "device_ms": launch_ms(lambda: numpy_sum_cuda(one, one_offs), iters=20),
+            "device_ms_by": "CUDA events around each launch",
+            "library_device_ms": launch_ms(lambda: torch.sum(one), iters=20)}
+
 def phase_build() -> dict:
     from repro_torch.kernels import build
 
@@ -1974,25 +2146,23 @@ def _eidola_replay(card: str, bundles: dict) -> list:
     return rows
 
 
-# The closed loop (slice 5b): the rows of BENCH_multi_device.json (written by
-# the reference's benchmarks/multi_device_bench.py: SimConfig(workgroups=64,
-# engine=EVENT), SPIN, collect_segments=False) that this slice reproduces.
-# The tiered ring_allreduce, all_to_all and hierarchical_allreduce rows above
-# 64 devices need the tiered lockstep solver (slice 5c) to run in reasonable
-# time and are left out.
+# The closed loop: every row of BENCH_multi_device.json (written by the
+# reference's benchmarks/multi_device_bench.py: SimConfig(workgroups=64,
+# engine=EVENT), SPIN, collect_segments=False), flat and tiered, up to 4,096
+# devices.  The record's engaged rows run the lockstep solvers on the card:
+# the flat one on the single-tier ring, the tiered one on two_tier, fat_tree
+# and rail_optimized.
 CLUSTER_BENCH = Path(__file__).resolve().parent / "BENCH_multi_device.json"
 CLUSTER_COUNTERS = ("flag_reads", "nonflag_reads", "xgmi_writes_in", "wtt_enacted",
                     "kernel_span_ns", "sim_cycles")
-CLUSTER_SOLVED = ("ring_allreduce", "all_to_all")  # flat: the lockstep solver, on the card
-CLUSTER_TIERED_MAX = 64
-CLUSTER_TIMELINE_MAX = 256  # the card solver held to the host timeline engine up to here
-CLUSTER_ROWS = 106
+CLUSTER_CPU_MAX = 1024  # the card solver held to the CPU solver up to here
+CLUSTER_TIMELINE_MAX = 256  # and to the host timeline engine up to here
+CLUSTER_ROWS = 144
+CLUSTER_HOST_WORKERS = 6  # processes running the host checks beside the card rows
 
 
 def _cluster_rows() -> list:
-    rows = json.loads(CLUSTER_BENCH.read_text())["rows"]
-    return [r for r in rows if r["devices_per_node"] is None or r["scenario"] == "pipeline_p2p"
-            or r["devices"] <= CLUSTER_TIERED_MAX]
+    return json.loads(CLUSTER_BENCH.read_text())["rows"]
 
 
 def _cluster_counters(report) -> dict:
@@ -2039,63 +2209,117 @@ def _cluster_run(row: dict, device: str, **kw) -> tuple:
     return report, time.perf_counter() - t0
 
 
-def phase_cluster(card: str) -> list:
-    """The closed loop: every row this slice reproduces, its counters equal
-    to the reference's record; the flat solver on the card equal to the CPU
-    solver and to the host timeline engine; a planted read rejected.  One
-    line a scenario, then the phase's line."""
+def _cluster_host_check(row: dict, kind: str) -> tuple:
+    """One host run of a row, in a worker process: ``"record"`` a row the
+    record shows on the host engines (its counters and lockstep reason),
+    ``"cpu"`` the CPU solver (its report's fields and solve time),
+    ``"timeline"`` the host timeline engine (its counters); with the run's
+    wall."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    if kind == "record":
+        report, wall = _cluster_run(row, "cpu")
+        return _cluster_counters(report), report.meta["lockstep_reason"], wall
+    if kind == "cpu":
+        report, wall = _cluster_run(row, "cpu")
+        return _cluster_fields(report), report.meta["wall_breakdown"]["solve_s"], wall
+    report, wall = _cluster_run(row, "cpu", lockstep=False)
+    return _cluster_engine_counters(report), None, wall
+
+
+def _solver_kernels() -> dict:
+    from repro_torch.kernels.numpy_sum import numpy_sum_cuda
     from repro_torch.kernels.ordered_scan import ordered_scan_cuda
+    from repro_torch.kernels.port_chain import port_chain_cuda
+
+    return {"ordered_scan": ordered_scan_cuda, "port_chain": port_chain_cuda,
+            "numpy_sum": numpy_sum_cuda}
+
+
+def phase_cluster(card: str) -> list:
+    """The closed loop: every row of the record, its counters and its
+    lockstep reason equal to the reference's; every engaged row solved on the
+    card, equal to the CPU solver up to CLUSTER_CPU_MAX devices and to the
+    host timeline engine up to CLUSTER_TIMELINE_MAX; a planted read rejected.
+    The host runs (those checks, and the rows the record shows on the host
+    engines, which touch no card) go to CLUSTER_HOST_WORKERS worker
+    processes at once while the card runs its rows, so their walls are taken
+    side by side.  One line a scenario, then the phase's line."""
+    import concurrent.futures
+    import multiprocessing
 
     t0 = time.perf_counter()
     rows = _cluster_rows()
     if len(rows) != CLUSTER_ROWS:
-        raise AssertionError(f"cluster: {len(rows)} rows selected, not {CLUSTER_ROWS}")
-    # warm: the CUDA context and the solver's first launches, outside the count
-    _cluster_run(rows[0], "cuda")
-    ordered_scan_cuda.launches = 0
-    lines, mismatches = {}, []
-    card_walls = {}
-    for row in rows:
-        name = row["scenario"]
-        solved = name in CLUSTER_SOLVED and row["devices_per_node"] is None
-        report, wall = _cluster_run(row, "cuda")
-        got = _cluster_counters(report)
-        wrong = _cluster_mismatch(got, row)
-        if wrong:
-            mismatches.append({"row": {k: row[k] for k in ("scenario", "devices",
-                                                           "devices_per_node", "fabric")},
-                               "fields": wrong})
-        out = {"devices": row["devices"], "devices_per_node": row["devices_per_node"],
-               "fabric": row["fabric"] or ("two_tier" if row["devices_per_node"] else "ring"),
-               "lockstep_reason": report.meta["lockstep_reason"],
-               "reference_wall_s": row["wall_time_s"]}
-        if solved:
-            if report.meta["lockstep_reason"] != "engaged":
-                raise AssertionError(f"cluster {name} {row['devices']}: the flat solver did not "
-                                     f"engage: {report.meta['lockstep_reason']}")
-            cpu, cpu_wall = _cluster_run(row, "cpu")
-            if _cluster_fields(report) != _cluster_fields(cpu):
-                raise AssertionError(f"cluster {name} {row['devices']}: the card solver's report "
-                                     "differs from the CPU solver's")
-            out.update(wall_card_s=wall, wall_cpu_s=cpu_wall,
-                       solve_card_s=report.meta["wall_breakdown"]["solve_s"],
-                       solve_cpu_s=cpu.meta["wall_breakdown"]["solve_s"])
-            card_walls[(name, row["devices"])] = wall
-            if row["devices"] <= CLUSTER_TIMELINE_MAX:
-                host, host_wall = _cluster_run(row, "cpu", lockstep=False)
-                if _cluster_engine_counters(host) != _cluster_engine_counters(report):
-                    raise AssertionError(f"cluster {name} {row['devices']}: the card solver "
-                                         "differs from the host timeline engine")
-                out["wall_timeline_host_s"] = host_wall
-        else:
-            out["wall_host_s"] = wall
-        lines.setdefault(name, []).append(out)
-    launches = ordered_scan_cuda.launches
+        raise AssertionError(f"cluster: {len(rows)} rows in the record, not {CLUSTER_ROWS}")
+    pool = concurrent.futures.ProcessPoolExecutor(
+        CLUSTER_HOST_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        host = {}
+        for i, row in enumerate(rows):
+            if row["lockstep_reason"] != "engaged":
+                host[i, "record"] = pool.submit(_cluster_host_check, row, "record")
+            else:
+                if row["devices"] <= CLUSTER_CPU_MAX:
+                    host[i, "cpu"] = pool.submit(_cluster_host_check, row, "cpu")
+                if row["devices"] <= CLUSTER_TIMELINE_MAX:
+                    host[i, "timeline"] = pool.submit(_cluster_host_check, row, "timeline")
+        # warm: the CUDA context and both solvers' first launches, outside the count
+        _cluster_run(rows[0], "cuda")
+        _cluster_run(next(r for r in rows if r["devices_per_node"] is not None
+                          and r["lockstep_reason"] == "engaged"), "cuda")
+        kernels = _solver_kernels()
+        for fn in kernels.values():
+            fn.launches = 0
+        lines, mismatches = {}, []
+        for i, row in enumerate(rows):
+            name = row["scenario"]
+            if (i, "record") in host:
+                got, reason, wall = host[i, "record"].result()
+            else:
+                report, wall = _cluster_run(row, "cuda")
+                got, reason = _cluster_counters(report), report.meta["lockstep_reason"]
+            wrong = _cluster_mismatch(got, row)
+            if reason != row["lockstep_reason"]:
+                wrong.append("lockstep_reason")
+            if wrong:
+                mismatches.append({"row": {k: row[k] for k in ("scenario", "devices",
+                                                               "devices_per_node", "fabric")},
+                                   "fields": wrong})
+            tiered = row["devices_per_node"] is not None
+            out = {"devices": row["devices"], "devices_per_node": row["devices_per_node"],
+                   "fabric": row["fabric"] or ("two_tier" if tiered else "ring"),
+                   "lockstep_reason": reason, "reference_wall_s": row["wall_time_s"]}
+            if row["lockstep_reason"] == "engaged" and reason == "engaged":
+                solver = "tiered" if tiered else "flat"
+                out.update(solver=solver, wall_card_s=wall,
+                           solve_card_s=report.meta["wall_breakdown"]["solve_s"],
+                           compile_card_s=report.meta["wall_breakdown"].get("compile_s"))
+                if (i, "cpu") in host:
+                    cpu, solve_cpu, cpu_wall = host[i, "cpu"].result()
+                    if _cluster_fields(report) != cpu:
+                        raise AssertionError(f"cluster {name} {out['fabric']} {row['devices']}: "
+                                             f"the card's {solver} solver differs from the CPU "
+                                             "solver")
+                    out.update(wall_cpu_s=cpu_wall, solve_cpu_s=solve_cpu)
+                if (i, "timeline") in host:
+                    counters, _, host_wall = host[i, "timeline"].result()
+                    if counters != _cluster_engine_counters(report):
+                        raise AssertionError(f"cluster {name} {out['fabric']} {row['devices']}: "
+                                             f"the card's {solver} solver differs from the host "
+                                             "timeline engine")
+                    out["wall_timeline_host_s"] = host_wall
+            else:
+                out["wall_host_s"] = wall
+            lines.setdefault(name, []).append(out)
+    finally:
+        pool.shutdown(cancel_futures=True)
+    launches = {k: fn.launches for k, fn in kernels.items()}
     if mismatches:
         raise AssertionError(f"cluster: {len(mismatches)} rows differ from "
                              f"BENCH_multi_device.json: {mismatches[:5]}")
-    if launches == 0:
-        raise AssertionError("cluster: the card solver never launched the ordered scan")
+    if not all(launches.values()):
+        raise AssertionError(f"cluster: a solver kernel never launched: {launches}")
     # a planted fault: the comparison must reject one flag read too many
     row = rows[0]
     planted = dict(_cluster_counters(_cluster_run(row, "cpu")[0]))
@@ -2105,12 +2329,49 @@ def phase_cluster(card: str) -> list:
         raise AssertionError(f"cluster: a result with one flag read added gave {rejected}")
     out_lines = [{"phase": "cluster", "scenario": name, "rows": rs, "card": card}
                  for name, rs in lines.items()]
+    engaged = [r for rs in lines.values() for r in rs if "solver" in r]
     out_lines.append({"phase": "cluster", "rows": len(rows), "equal_to_record": True,
-                      "card_solver_equals_cpu": True,
+                      "lockstep_reason_equal_to_record": True,
+                      "solved_on_card": {s: sum(r["solver"] == s for r in engaged)
+                                         for s in ("flat", "tiered")},
+                      "card_solver_equals_cpu_up_to": CLUSTER_CPU_MAX,
                       "timeline_checked_up_to": CLUSTER_TIMELINE_MAX,
-                      "launches": {"ordered_scan": launches}, "planted_fault": rejected,
+                      "host_workers": CLUSTER_HOST_WORKERS,
+                      "launches": launches, "planted_fault": rejected,
                       "seconds": time.perf_counter() - t0, "card": card})
     return out_lines
+
+
+def _closed_loop_phases(card: str) -> tuple:
+    """The tiered solver's two kernels at its shapes (the ``kernels``
+    phase's entries for them), then the cluster and analysis phases; run in
+    a process of their own, last (see ``in_spawned_process``)."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tiered = {"port_chain": _port_chain_at(gen), "numpy_sum": _numpy_sum_at(gen)}
+    return tiered, phase_cluster(card), phase_analysis(card)
+
+
+def phase_analysis(card: str) -> dict:
+    """The port's static analyzer gate, ``python -m repro_torch.analysis`` at
+    its defaults (its timeline stage simulating on the card): the verifier
+    over every scenario x fabric, the timeline path, the loop-space verifier
+    at 1,024 devices and the layout prover up to 4,096.  Its four summary
+    lines must each end in "ok"."""
+    from repro_torch.analysis.__main__ import main as gate
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = gate([])
+    summary = [ln for ln in buf.getvalue().splitlines()
+               if ln.startswith(("verified ", "proved "))]
+    if code != 0 or len(summary) != 4 or not all(ln.endswith(": ok") for ln in summary):
+        raise AssertionError(f"analysis: the gate exited {code}: {buf.getvalue()[-2000:]}")
+    return {"phase": "analysis", "gate": "python -m repro_torch.analysis", "exit": code,
+            "summary": summary, "lines": len(buf.getvalue().splitlines()),
+            "seconds": time.perf_counter() - t0, "card": card}
 
 
 def phase_serve(card: str, arch: str) -> tuple:
@@ -4129,10 +4390,6 @@ def main() -> int:
     for line in eidola[:-1]:
         emit(line)
     done("eidola", eidola[-1])
-    cluster = phase_cluster(card)
-    for line in cluster[:-1]:
-        emit(line)
-    cluster = done("cluster", cluster[-1])
     serves, profiles = {}, {}
     for arch in SERVE_ARCHS:
         model, serves[arch] = phase_serve(card, arch)
@@ -4160,6 +4417,13 @@ def main() -> int:
     for line in blocks:
         emit(line)
     ended["sharded_blocks"] = time.perf_counter() - t_start
+    tiered, cluster, analysis = in_spawned_process(_closed_loop_phases, card)
+    emit({"phase": "kernels", "tiered_solver": tiered})
+    kernels.update(tiered)
+    for line in cluster[:-1]:
+        emit(line)
+    cluster = done("cluster", cluster[-1])
+    done("analysis", analysis)
     emit({"phase": "timing", "seconds_at_end_of": ended})
 
     def launches_and_device_ms(name):
@@ -4175,13 +4439,13 @@ def main() -> int:
                     profiles[MAIN_ARCH]["kernels"][name]["device_ms_per_launch"])
         if name == "rmsnorm_bwd":
             return trains[TRAIN_MAIN]["launches"][name], kernels[name]["device_ms"]
-        if name == "ordered_scan":  # the flat solver's rows of the cluster phase
+        if name in SOLVER_KERNELS:  # the solvers' rows of the cluster phase
             return cluster["launches"][name], kernels[name]["device_ms"]
         return allreduce["launches"][name], kernels[name]["device_ms"]
 
     def by_path(name):
-        if name == "ordered_scan":
-            return {"launches_by_path": {"cluster, flat lockstep solver":
+        if name in SOLVER_KERNELS:
+            return {"launches_by_path": {"cluster, lockstep solvers":
                                          cluster["launches"][name]}}
         paths = {f"{a} serve": serves[a]["launches"][name] for a in serves
                  if name in SERVE_KERNELS}

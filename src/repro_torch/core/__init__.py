@@ -19,8 +19,9 @@ fabric from ``interconnect``'s gallery), the four closed-loop scenarios,
 ``cohort_timeline``'s ``TimelineEngine`` (host) and ``lockstep``'s flat
 solver, whose cursor matrices live on the cluster's device; ``egpu`` holds
 the synthetic write-stream generators.  ``Cluster`` runs on the CUDA device
-unless the caller passes ``device="cpu"``.  Not ported yet: the tiered
-lockstep solver and ``repro.analysis`` (sanitizer, verifier, layout prover).
+unless the caller passes ``device="cpu"``.  ``lockstep_tiered`` solves the
+group-uniform programs over the multi-tier presets on that device too, and
+``verify_scenario`` (lazily re-exported) is :mod:`repro_torch.analysis`'s.
 
 ``replay_lane`` and ``spin_reads`` are the spin-wait closed forms vectorised
 over cohorts or workgroups.  The capture bridge's modules: ``interconnect``
@@ -89,4 +90,15 @@ __all__ = [
     "GemvAllReduceWorkload", "make_gemv_allreduce_traces",
     "WriteTrackingTable",
     "replay_lane", "spin_reads",
+    "verify_scenario",
 ]
+
+
+def __getattr__(name):
+    # PEP 562 lazy re-export: repro_torch.analysis imports
+    # repro_torch.core.cluster, so a top-level import here would be circular
+    if name == "verify_scenario":
+        from ..analysis import verify_scenario
+
+        return verify_scenario
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -28,9 +28,9 @@ The port's cluster runs on a torch device, resolved when it is built: the
 CUDA device unless the caller passes ``device="cpu"``, and an error, not a
 fallback, when there is no card.  The cycle, event and timeline engines are
 host interpreters and ignore it; the flat lockstep solver
-(:mod:`repro_torch.core.lockstep`) keeps its cursor matrices and counters
-there.  The reference's traffic sanitizer (``repro.analysis``) is not ported:
-``sanitize=True`` raises.
+and the tiered one (:mod:`repro_torch.core.lockstep_tiered`) keep their
+cursor matrices, counters and fabric state there.  ``sanitize=True`` shadows
+the run with :class:`repro_torch.analysis.sanitize.TrafficSanitizer`.
 """
 
 from __future__ import annotations
@@ -151,10 +151,9 @@ class Cluster:
     those the fabric degenerates to the flat single-tier ring over
     ``cfg.n_devices`` (the pre-tiered behaviour).
 
-    ``device`` is where the flat lockstep solver's tensors live: ``None`` is
-    the CUDA device (an error without a card), ``"cpu"`` the host.  It is
-    resolved first, before anything is built.  ``sanitize=True`` raises
-    ``NotImplementedError``: the sanitizer is not ported yet.
+    ``device`` is where the lockstep solvers' tensors live: ``None`` is the
+    CUDA device (an error without a card), ``"cpu"`` the host.  It is
+    resolved first, before anything is built.
     """
 
     def __init__(
@@ -175,11 +174,6 @@ class Cluster:
         device=None,
     ):
         self.device = resolve_device(device)
-        if sanitize:
-            raise NotImplementedError(
-                "sanitize=True needs the traffic sanitizer of repro.analysis, "
-                "which is not ported yet (slice 5d)"
-            )
         self.cfg = cfg.validate()
         self.scenario = scenario
         self.amap = scenario.amap
@@ -204,6 +198,15 @@ class Cluster:
         self._emit_counts: Dict[tuple, int] = {}
         # dst device -> marker data writes placed so far (address spacing)
         self._data_marks: Dict[int, int] = {}
+        if sanitize:
+            # late import: repro_torch.analysis imports this module
+            from ..analysis.sanitize import TrafficSanitizer
+
+            self._san = TrafficSanitizer(
+                self.amap, self.fabric, cfg.n_devices
+            )
+        else:
+            self._san = None
 
         t0 = time.perf_counter()
         self.nodes: List[ClusterNode] = []
@@ -229,6 +232,8 @@ class Cluster:
                 cohorts=cohorts,
             )
             wtt = WriteTrackingTable(clock_ghz=cfg.clock_ghz)
+            if self._san is not None:
+                memory.add_write_observer(self._san.observer_for(d))
             self.nodes.append(ClusterNode(d, memory, monitor, target, wtt))
 
         # seed traces (the open-loop degenerate case / warm-start writes) get
@@ -241,6 +246,8 @@ class Cluster:
                 p = self._perturb_for(node.device_id)
                 if p is not None:
                     eff = p.jitter_write(eff)
+                if self._san is not None:
+                    self._san.note_seed_write(node.device_id, eff.addr)
                 node.wtt.register(eff)
         # program-construction wall (nodes + seed traces), surfaced in
         # Report.meta["program_stats"] — symbolic programs keep this O(1)
@@ -302,6 +309,16 @@ class Cluster:
         arrival_ns = self.fabric.transfer(
             src, op.dst, op.payload_bytes + op.size, issue_ns
         )
+        if self._san is not None:
+            self._san.note_emission(
+                src,
+                op.dst,
+                op.addr if op.addr is not None
+                else self.amap.flag_addr(src, op.slot),
+                op.payload_bytes + op.size,
+                issue_ns,
+                arrival_ns,
+            )
         self.nodes[op.dst].wtt.register_many(
             self._emit_writes(src, op, arrival_ns, cycle)
         )
@@ -336,6 +353,17 @@ class Cluster:
             [op.payload_bytes + op.size for op in ops],
             issue_ns,
         )
+        if self._san is not None:
+            for op, arrival_ns in zip(ops, arrivals):
+                self._san.note_emission(
+                    src,
+                    op.dst,
+                    op.addr if op.addr is not None
+                    else self.amap.flag_addr(src, op.slot),
+                    op.payload_bytes + op.size,
+                    issue_ns,
+                    arrival_ns,
+                )
         # writes are built in emission order (Cluster seqs identical to the
         # per-op path) and grouped per destination WTT; within one table the
         # batch preserves that order, so reg_nos — the pop tie-break — are
@@ -545,6 +573,8 @@ class Cluster:
                 "lockstep solver substitutes for the timeline engine, "
                 f"which is not in use here ({why})"
             )
+        if self._san is not None:
+            self._san.check()
 
         traffic: Dict[str, int] = {}
         per_device: Dict[int, Dict[str, int]] = {}
@@ -602,7 +632,7 @@ class Cluster:
             segments=segments,
             meta={
                 "closed_loop": True,
-                "sanitized": False,
+                "sanitized": self._san is not None,
                 "engine_impl": "timeline" if use_timeline else engine_name,
                 "lockstep_reason": lockstep_reason,
                 "program_stats": program_stats,

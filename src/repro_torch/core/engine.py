@@ -88,10 +88,18 @@ def _deadlock_message(nodes: Sequence[Node], cycle: int) -> str:
 
 
 def _deadlock_error(nodes: Sequence[Node], cycle: int) -> EidolaDeadlock:
-    """Build the empty-queue deadlock error.  The reference embeds its static
-    analyzer's blame-chain diagnosis where one can be computed (none for an
-    open-loop run); the analyzer is not ported, so the port embeds none."""
-    return EidolaDeadlock(_deadlock_message(nodes, cycle))
+    """Build the empty-queue deadlock error, with the static analyzer's
+    blame-chain diagnosis embedded when one can be computed."""
+    msg = _deadlock_message(nodes, cycle)
+    diagnosis = None
+    try:
+        # late import: repro_torch.analysis imports core modules
+        from ..analysis import diagnose_deadlock
+
+        diagnosis = diagnose_deadlock(nodes[0][0].scenario)
+    except Exception:  # diagnosis is best-effort; never mask the deadlock
+        diagnosis = None
+    return EidolaDeadlock(msg, diagnosis=diagnosis)
 
 
 def _all_idle(nodes: Sequence[Node]) -> bool:

@@ -1,5 +1,5 @@
 """Bulk lockstep solver: whole-program closed forms over symbolic programs
-(port of the flat half of ``repro/core/lockstep.py``).
+(port of ``repro/core/lockstep.py``).
 
 The timeline engine (:mod:`repro_torch.core.cohort_timeline`) already collapses each
 device's cohorts into one lane, but it still walks *every phase of every lane*
@@ -48,14 +48,12 @@ reference's own), all invisible to the counters a run reports:
 
 Eligibility (:func:`lockstep_support` + a successful compile) requires the
 timeline invariant plus: flat single-tier ring fabric, no segment collection,
-no seed writes, and rank-uniform symbolic programs whose waits/emits fit the
+no sanitizer, no seed writes, and rank-uniform symbolic programs whose waits/emits fit the
 affine single-peer or all-peers patterns.  Anything else falls back to the
 generic timeline engine; ``Cluster(lockstep=True)`` turns the fallback into a
-hard error naming the reason.  The reference compiles the other presets
-(``two_tier``, ``fat_tree``, ``rail_optimized``) through its tiered solver,
-which is not ported yet: the port's :meth:`LockstepEngine.compile` returns
-:data:`TIERED_NOT_PORTED` for them, and the cluster runs the timeline engine,
-whose counters are the reference's.
+hard error naming the reason.  The other presets (``two_tier``,
+``fat_tree``, ``rail_optimized``) compile through the tiered group-uniform
+solver (:mod:`repro_torch.core.lockstep_tiered`).
 
 Compilation stays on the host.  :meth:`LockstepEngine.run` works on torch
 tensors on the cluster's device (``Cluster.device``): the cursor matrix, the
@@ -94,16 +92,10 @@ from .scenario import (
 
 __all__ = [
     "LockstepEngine",
-    "TIERED_NOT_PORTED",
     "UnsupportedProgram",
     "lockstep_support",
     "plan_stages",
 ]
-
-#: The reason :meth:`LockstepEngine.compile` gives on every fabric but the
-#: flat single-tier ring, whose reference solver is ``lockstep_tiered``.
-TIERED_NOT_PORTED = "tiered solver not ported yet (slice 5c)"
-
 
 class UnsupportedProgram(Exception):
     """Raised during compilation when the program shape doesn't fit."""
@@ -128,6 +120,8 @@ def lockstep_support(cluster) -> Optional[str]:
             "segment collection needs per-phase spans "
             "(handled by the generic timeline engine)"
         )
+    if cluster._san is not None:
+        return "traffic sanitization observes individual write enactments"
     fab = cluster.fabric
     rcls = type(fab.spec.routing).__name__
     supported = {
@@ -493,9 +487,9 @@ def plan_stages(amap, n, progs, tdelta_for=None) -> _Plan:
     emission matching that proves every wait is satisfied by a strictly
     earlier emission (lex order over (segment, k, body position)) — one
     node per (lane, affine pattern), never one per step.  The static
-    verifier of ``repro.analysis.verify`` reuses it with
+    verifier (:mod:`repro_torch.analysis.verify`) reuses it with
     ``tdelta_for=None`` to check loop-space dependency graphs at pod scale
-    without materializing O(devices x steps) sites (not ported yet).
+    without materializing O(devices x steps) sites.
 
     Raises :class:`UnsupportedProgram` when the programs are not rank-uniform or
     a pattern falls outside the affine single-peer / all-peers families.
@@ -683,16 +677,17 @@ class LockstepEngine:
     def __init__(self, cluster):
         self.cluster = cluster
         self._plan: Optional[_Plan] = None
+        self._tiered = None
         self.breakdown: Dict[str, float] = {}
 
     def compile(self, reuse=None) -> Optional[str]:
         """Build the stage plan; returns a fallback reason or None.
 
-        The flat single-tier ring compiles to the rank-uniform stage plan;
-        every other preset returns :data:`TIERED_NOT_PORTED` (the reference
-        compiles those through ``lockstep_tiered``).  Compilation mutates
-        nothing, so a failure here falls back to the generic timeline engine
-        cleanly.
+        The flat single-tier ring keeps the original rank-uniform stage
+        plan; every other supported preset compiles through the tiered
+        group-uniform solver (:mod:`repro_torch.core.lockstep_tiered`).
+        Compilation mutates nothing, so a failure here falls back to the
+        generic timeline engine cleanly.
 
         ``reuse`` accepts a :meth:`plan_handle` compiled for an identical
         (scenario, config, fabric) point — plans are read-only at run time,
@@ -700,15 +695,22 @@ class LockstepEngine:
         """
         t0 = time.perf_counter()
         if reuse is not None:
-            _kind, self._plan = reuse
+            kind, plan = reuse
+            if kind == "tiered":
+                self._tiered = plan
+            else:
+                self._plan = plan
             self.breakdown["compile_s"] = time.perf_counter() - t0
             self.breakdown["compile_cached"] = 1.0
             return None
         fab = self.cluster.fabric
-        if not (fab.spec.name == "ring" and fab.n_nodes == 1):
-            return TIERED_NOT_PORTED
         try:
-            self._plan = _compile(self.cluster)
+            if fab.spec.name == "ring" and fab.n_nodes == 1:
+                self._plan = _compile(self.cluster)
+            else:
+                from .lockstep_tiered import compile_tiered
+
+                self._tiered = compile_tiered(self.cluster)
         except UnsupportedProgram as e:
             return str(e)
         except ValueError as e:  # e.g. address-map probing out of range
@@ -719,11 +721,17 @@ class LockstepEngine:
     def plan_handle(self):
         """The compiled plan as an opaque (kind, plan) pair for reuse via
         ``compile(reuse=...)``; None before a successful compile."""
+        if self._tiered is not None:
+            return ("tiered", self._tiered)
         if self._plan is not None:
             return ("flat", self._plan)
         return None
 
     def run(self) -> EngineResult:
+        if self._tiered is not None:
+            from .lockstep_tiered import run_tiered
+
+            return run_tiered(self.cluster, self._tiered, self.breakdown)
         t0 = time.perf_counter()
         plan = self._plan
         assert plan is not None, "compile() must succeed before run()"

@@ -19,8 +19,8 @@ A scenario runs open loop (one detailed device replays its peers' writes
 from the WTT) or, where it supports it, closed loop (every device detailed in
 a :class:`repro_torch.core.cluster.Cluster`, flags emitted over a fabric
 model).  ``simulate`` and ``SweepRunner`` take the torch ``device`` a run
-uses; the reference's static analyzer (``repro.analysis``: the sanitizer,
-the verifier and the layout prover) is not ported yet.  Built-in scenarios
+uses; the static analyzer (:mod:`repro_torch.analysis`: the sanitizer, the
+verifier and the layout prover) checks the programs.  Built-in scenarios
 live in :mod:`repro_torch.core.scenarios`; importing that package (or calling
 any registry function) registers them.
 """
@@ -606,8 +606,8 @@ class Scenario(abc.ABC):
     #: Class-level capability flag: True on scenarios that accept
     #: ``closed_loop=True`` and run per-rank phase programs in a Cluster.
     #: Registering such a class records a layout-proof obligation (see
-    #: ``LAYOUT_PROOF_OBLIGATIONS``), which the reference's parametric prover
-    #: (``repro.analysis.layout``, not ported yet) discharges.
+    #: ``LAYOUT_PROOF_OBLIGATIONS``) discharged by the parametric prover in
+    #: :mod:`repro_torch.analysis.layout`.
     closed_loop_capable: ClassVar[bool] = False
     #: Device-count ceiling the layout prover certifies this scenario's
     #: address layout up to (flag/partial/marker disjointness, unique
@@ -738,8 +738,8 @@ _REGISTRY: Dict[str, Type[Scenario]] = {}
 #: pool / partial region / marker windows pairwise disjoint, one writer per
 #: flag value epoch, every wait family fed by an earlier emission family —
 #: for all device counts up to its ``max_devices`` bound.  The obligation is
-#: discharged by the reference's ``repro.analysis.layout.prove_registry``;
-#: the port keeps the list only (its prover is not ported yet).
+#: discharged by :func:`repro_torch.analysis.layout.prove_registry`, wired
+#: into ``python -m repro_torch.analysis``.
 LAYOUT_PROOF_OBLIGATIONS: List[str] = []
 
 
@@ -875,9 +875,11 @@ def simulate(
     :class:`repro_torch.core.simulator.Eidola` replay path is used.  Both return a
     :class:`repro_torch.core.simulator.Report`.
 
-    ``sanitize=True`` (closed loop only) asks for the reference's traffic
-    sanitizer (``repro.analysis``), which is not ported yet: the cluster
-    raises ``NotImplementedError``.
+    ``sanitize=True`` (closed loop only) runs the
+    :class:`repro_torch.analysis.sanitize.TrafficSanitizer` alongside the
+    engines: byte conservation, calendar monotonicity, and exactly-once flag
+    delivery are asserted at the end of the run (raising ``SanitizerError``
+    on violation) without perturbing any simulated state.
 
     ``timeline`` (closed loop only) selects the pod-scale timeline engine
     (:mod:`repro_torch.core.cohort_timeline`): ``None`` (default) auto-enables it
@@ -888,14 +890,15 @@ def simulate(
     lockstep solvers, which substitute for the timeline engine — whole
     loops advance as closed forms instead of per-phase interpretation.
     The flat solver (:mod:`repro_torch.core.lockstep`) covers globally
-    rank-uniform programs on the single-tier ring; the reference's tiered
-    solver (``lockstep_tiered``, for the ``two_tier``, ``fat_tree`` and
-    ``rail_optimized`` presets) is not ported yet, so those run the timeline
-    engine.  ``Report.meta["lockstep_reason"]`` records either ``"engaged"``
-    or the exact reason the solver declined.
+    rank-uniform programs on the single-tier ring; the tiered solver
+    (:mod:`repro_torch.core.lockstep_tiered`) covers group-uniform programs
+    (leaders vs. workers, the uniform collectives) over the ``two_tier``,
+    ``fat_tree``, and ``rail_optimized`` presets, pricing real multi-leg
+    routes.  ``Report.meta["lockstep_reason"]`` records either ``"engaged"``
+    or the exact reason the solvers declined.
 
-    ``device`` is the torch device the vector engine's and the flat lockstep
-    solver's tensors live on: ``None`` is the CUDA device (an error without a
+    ``device`` is the torch device the vector engine's and the lockstep
+    solvers' tensors live on: ``None`` is the CUDA device (an error without a
     card), ``"cpu"`` the host; it is resolved before anything is built.
     """
     from .simulator import Eidola  # late import: simulator imports target

@@ -106,9 +106,8 @@ class EidolaDeadlock(RuntimeError):
     """Raised when all workgroups are blocked and no pending writes remain.
 
     ``diagnosis`` carries the static analyzer's explanation of the wait-for
-    cycle (blame chains from the reference's ``repro.analysis.diagnose_deadlock``,
-    not yet ported: the port passes none) when one could be computed; it is
-    appended to the message.
+    cycle (blame chains from :func:`repro_torch.analysis.diagnose_deadlock`)
+    when one could be computed; it is appended to the message.
     """
 
     def __init__(self, message: str, *, diagnosis: "str | None" = None):

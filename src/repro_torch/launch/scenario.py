@@ -17,6 +17,10 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.scenario --device cpu \
       --scenario ring_allreduce --devices 8 --nodes 4 --detailed all \
       --fabric fat_tree --link spine=3.125
+  PYTHONPATH=src python -m repro_torch.launch.scenario --device cpu \
+      --scenario ring_allreduce --devices 8 --detailed all --verify
+  PYTHONPATH=src python -m repro_torch.launch.scenario --device cpu \
+      --scenario all_to_all --devices 8 --detailed all --sanitize
 
 ``-p key=value`` sets one scenario parameter or SimConfig field;
 ``--sweep key=v1,v2,...`` sweeps it (repeatable; the cross product runs via
@@ -40,11 +44,11 @@ error listing the fabric's valid ones).  ``--ici-bw`` / ``--dci-bw`` remain
 as aliases for ``--link ici=…`` / ``--link dci=…`` (and additionally scale
 the open-loop arrival schedules derived from the hardware model).
 
-The vector engine's and the flat lockstep solver's tensors live on
-``--device``: the CUDA device by default (an error without a card), ``cpu``
-for the host.  The reference's ``--verify``, ``--prove-layout`` and
-``--sanitize`` need its static analyzer (``repro.analysis``), which is not
-ported yet: they exit 1 with an error naming it.
+The vector engine's and the lockstep solvers' tensors live on ``--device``:
+the CUDA device by default (an error without a card), ``cpu`` for the host.
+``--verify`` and ``--prove-layout`` run the static analyzer
+(:mod:`repro_torch.analysis`) instead of simulating; ``--sanitize`` runs the
+traffic sanitizer alongside the closed-loop engines.
 """
 
 from __future__ import annotations
@@ -69,9 +73,6 @@ from ..core.scenario import SIM_CONFIG_FIELDS
 from ..device import resolve_device
 
 __all__ = ["main"]
-
-# the reference's flags that need its static analyzer, not ported yet
-ANALYSIS_FLAGS = ("--verify", "--prove-layout", "--sanitize")
 
 
 def _literal(text: str):
@@ -154,12 +155,27 @@ def main(argv=None) -> int:
                     help="'all': closed-loop cluster, every device detailed; "
                          "'0': open-loop replay with one detailed device")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
-                    help="torch device of the vector engine and the flat "
-                         "lockstep solver (default: the CUDA device; an "
+                    help="torch device of the vector engine and the "
+                         "lockstep solvers (default: the CUDA device; an "
                          "error without one)")
-    for flag in ANALYSIS_FLAGS:
-        ap.add_argument(flag, action="store_true",
-                        help="the static analyzer's: not ported yet")
+    ap.add_argument("--verify", action="store_true",
+                    help="statically verify the scenario's phase programs "
+                         "(deadlock cycles, unmatched sync, slot races, "
+                         "fabric reachability) instead of simulating; exits "
+                         "non-zero with the diagnosis on a broken program")
+    ap.add_argument("--prove-layout", action="store_true",
+                    help="run the parametric layout prover instead of "
+                         "simulating: certify flag/partial/marker "
+                         "disjointness, unique flag writers, and wait/emit "
+                         "ordering for ALL device counts up to the "
+                         "scenario's max_devices bound (or --devices when "
+                         "given); exits non-zero with the finding and the "
+                         "smallest failing device count on a broken layout")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="run the traffic sanitizer alongside the engines "
+                         "(byte conservation, calendar monotonicity, "
+                         "exactly-once flag delivery); requires "
+                         "--detailed all")
     ap.add_argument("-p", "--param", action="append", default=[],
                     metavar="KEY=VALUE",
                     help="scenario parameter or SimConfig override")
@@ -169,13 +185,6 @@ def main(argv=None) -> int:
     ap.add_argument("--csv", default=None,
                     help="write sweep results to this CSV file")
     args = ap.parse_args(argv)
-    given = [f for f in ANALYSIS_FLAGS if getattr(args, f[2:].replace("-", "_"))]
-    if given:
-        raise SystemExit(
-            f"error: {', '.join(given)}: the static analyzer (repro.analysis: "
-            "the verifier, the layout prover and the sanitizer) is not ported "
-            "yet (slice 5d)"
-        )
 
     if args.list:
         for name in list_scenarios():
@@ -261,6 +270,40 @@ def main(argv=None) -> int:
     except ValueError as e:
         raise SystemExit(f"error: {e}")
 
+    if args.verify:
+        from ..analysis import verify_scenario
+
+        try:
+            verdict = verify_scenario(args.scenario, base_cfg, **sc_params)
+        except (NotImplementedError, TypeError, ValueError) as e:
+            raise SystemExit(f"error: {e}")
+        print(verdict.render())
+        return 0 if verdict.ok else 1
+
+    if args.prove_layout:
+        from ..analysis import prove_layout
+
+        pl_params = dict(sc_params)
+        pl_params.pop("closed_loop", None)
+        try:
+            proof = prove_layout(
+                args.scenario,
+                devices_per_node=pl_params.pop("devices_per_node", None),
+                fabric=pl_params.pop("fabric", None),
+                max_devices=args.devices,
+                **pl_params,
+            )
+        except (NotImplementedError, TypeError, ValueError) as e:
+            raise SystemExit(f"error: {e}")
+        print(proof.render())
+        return 0 if proof.ok else 1
+
+    if args.sanitize and args.detailed != "all":
+        raise SystemExit(
+            "error: --sanitize requires --detailed all (the sanitizer "
+            "shadows the closed-loop cluster)"
+        )
+
     if args.sweep:
         grid = _parse_kv(args.sweep, split_values=True)
         runner = SweepRunner(args.scenario, base_cfg, engines=engines, device=device)
@@ -285,7 +328,7 @@ def main(argv=None) -> int:
         cfg = base_cfg.with_(engine=eng)
         try:
             report = simulate(args.scenario, cfg, collect_segments=False,
-                              device=device, **sc_params)
+                              sanitize=args.sanitize, device=device, **sc_params)
         except KeyError as e:  # unknown fabric preset via -p fabric=...
             raise SystemExit(f"error: {e.args[0]}")
         except (NotImplementedError, TypeError, ValueError) as e:

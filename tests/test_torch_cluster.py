@@ -16,7 +16,7 @@ fabric stats (floats included), per-device traffic and segments.
 - the deadlock message, the sweep's devices / nodes axes, the command line's
   closed-loop flags and its exit-1 cases;
 - ``Cluster(device=None)`` and ``simulate`` raising without a card, and the
-  sanitizer (not ported) raising;
+  sanitizer running as the reference's;
 - the eGPU write-stream generators (``egpu``) and ``merge_streams``.
 """
 
@@ -167,10 +167,11 @@ def test_deadlock_message_equals_the_reference(how):
         with pytest.raises(M.EidolaDeadlock) as err:
             M.Cluster(cfg, sc, timeline=(how == "timeline"), **kw).run()
         msgs.append(str(err.value))
-    # the reference appends its static analyzer's diagnosis (not ported) on
-    # the lines after the message
-    assert msgs[1] == msgs[0].split("\n")[0]
+    # the static analyzer's diagnosis (the blame chain) on the lines after
+    # the message, in both packages
+    assert msgs[1] == msgs[0]
     assert "'silent_ring'" in msgs[1] and "device 3: wg 0-11" in msgs[1]
+    assert "\nstatic analysis:\n" in msgs[1]
 
 
 def test_sweep_devices_and_nodes_axes_equal_the_reference():
@@ -186,12 +187,20 @@ def test_sweep_devices_and_nodes_axes_equal_the_reference():
 
 
 def test_sanitizer_is_not_ported():
-    cfg = P.SimConfig(**FAST).with_devices(4)
-    sc = P.get_scenario("ring_allreduce")(cfg, closed_loop=True)
-    with pytest.raises(NotImplementedError, match=r"slice 5d"):
-        P.Cluster(cfg, sc, sanitize=True, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"slice 5d"):
-        P.simulate("ring_allreduce", cfg, closed_loop=True, sanitize=True, device="cpu")
+    # the name is kept from before the sanitizer was ported: it now runs, the
+    # sanitized report (and the solver's refusal) equal to the reference's
+    reports = []
+    for M in (R, P):
+        cfg = M.SimConfig(**FAST).with_devices(4)
+        sc = M.get_scenario("ring_allreduce")(cfg, closed_loop=True)
+        kw = {"device": "cpu"} if M is P else {}
+        M.Cluster(cfg, sc, sanitize=True, **kw)
+        reports.append(M.simulate("ring_allreduce", cfg, closed_loop=True, sanitize=True,
+                                  collect_segments=False, **kw))
+    assert reports[1].meta["sanitized"] is True
+    assert reports[1].meta["lockstep_reason"] == (
+        "traffic sanitization observes individual write enactments")
+    assert _fields(reports[1]) == _fields(reports[0])
 
 
 def test_cluster_raises_without_a_card(monkeypatch):
@@ -252,12 +261,8 @@ def test_cli_closed_loop_equals_the_reference(run):
     port = _cli_out(port_cli.main, ["--device", "cpu", *argv])
     if port[0] not in (0, None):  # an error: the same message, exit 1
         assert str(port[0]).startswith("error: ")
-    if run in TIERED_RUNS:
-        # the reference engages its tiered solver there, which is not ported:
-        # the port runs the timeline engine and says why; all else is equal
-        assert "lockstep: tiered solver not ported yet (slice 5c)" in port[1]
-        solver = re.compile(r"\(\d+ materialized|advanced by \w+|lockstep: .*")
-        port, ref = (port[0], solver.sub("", port[1])), (ref[0], solver.sub("", ref[1]))
+    if run in TIERED_RUNS:  # both engage their tiered solvers
+        assert "lockstep: engaged" in port[1]
     assert port == ref
 
 

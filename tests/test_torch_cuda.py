@@ -791,3 +791,84 @@ def test_flat_lockstep_solver_on_the_card_equals_the_cpu(cuda, name):
         assert (launched > 0) == (dev == cuda)
     assert reports["cuda"].meta["lockstep_reason"] == "engaged"
     assert fields(reports["cuda"]) == fields(reports["cpu"])
+
+
+def test_port_chain_kernel_equals_its_plain_version(cuda):
+    """Ports of 65,280 touches (one node's up port at 4,096 devices on
+    fat_tree) and of a few touches, restart runs and busy runs mixed: the
+    kernel's starts, busy and queued times bit for bit the plain version's."""
+    from repro_torch.kernels.port_chain import port_chain_cuda, port_chain_ref
+
+    rng = np.random.default_rng(5)
+    lens = [65_280, 1, 7, 300, 4_080]
+    rdy = np.concatenate([np.sort(rng.random(k)) * k * 0.8 for k in lens])
+    offs = torch.tensor(np.concatenate(([0], np.cumsum(lens))))
+    port = torch.tensor([3, 0, 9, 4, 7])
+    ser = torch.from_numpy(0.5 + rng.random(len(lens)))
+    busy0, qd0 = torch.from_numpy(rng.random(10)), torch.from_numpy(rng.random(10))
+    runs = {}
+    for dev in ("cpu", cuda):
+        busy, qd = busy0.clone().to(dev), qd0.clone().to(dev)
+        fn = port_chain_cuda if dev == cuda else port_chain_ref
+        before = port_chain_cuda.launches
+        starts = fn(torch.from_numpy(rdy).to(dev), offs.to(dev), port.to(dev), ser.to(dev),
+                    busy, qd)
+        assert port_chain_cuda.launches - before == (1 if dev == cuda else 0)
+        runs[str(dev)] = (starts.cpu(), busy.cpu(), qd.cpu())
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        assert torch.equal(got, want)
+
+
+def test_numpy_sum_kernel_equals_np_sum(cuda):
+    """Segments of 1-8,193 and 65,280 elements: the plain version's sums bit
+    for bit, which are numpy's where a left-to-right sum differs.  Above
+    8,192 elements only numpy before 2.3 cuts the sum into 8,192-element
+    blocks, as the reference's numpy does; the CPU tests hold the plain
+    version to it there."""
+    from repro_torch.kernels.numpy_sum import BLOCK, numpy_sum_cuda, numpy_sum_ref
+
+    rng = np.random.default_rng(6)
+    lens = [*range(1, 300), 1000, 4095, 4096, 4097, 8191, 8192, 8193, 65_280]
+    xs = [rng.random(k) * 10.0 ** rng.integers(-4, 4, k) for k in lens]
+    x = torch.from_numpy(np.concatenate(xs))
+    offs = torch.tensor(np.concatenate(([0], np.cumsum(lens))))
+    before = numpy_sum_cuda.launches
+    got = numpy_sum_cuda(x.to(cuda), offs.to(cuda)).cpu()
+    assert numpy_sum_cuda.launches == before + 1
+    assert torch.equal(got, numpy_sum_ref(x, offs))
+    blocked = [i for i, k in enumerate(lens) if k <= BLOCK]
+    want = torch.tensor([np.sum(xs[i]) for i in blocked])
+    assert torch.equal(got[blocked], want)
+
+
+@pytest.mark.parametrize("name", ["ring_allreduce", "all_to_all", "hierarchical_allreduce"])
+@pytest.mark.parametrize("fabric", ["two_tier", "fat_tree", "rail_optimized"])
+def test_tiered_lockstep_solver_on_the_card_equals_the_cpu(cuda, name, fabric):
+    """12 ranks, 4 a node: the tiered solver's tensors on the card give the
+    CPU solver's report on every field but the walls, and the card run
+    launches the port chain, numpy's sum and the ordered scan."""
+    import dataclasses
+
+    from repro_torch.core import EngineKind, SimConfig, simulate
+    from repro_torch.kernels.numpy_sum import numpy_sum_cuda
+    from repro_torch.kernels.ordered_scan import ordered_scan_cuda
+    from repro_torch.kernels.port_chain import port_chain_cuda
+
+    def fields(report):
+        d = dataclasses.asdict(report)
+        d.pop("wall_time_s")
+        d["meta"].pop("wall_breakdown")
+        d["meta"]["program_stats"].pop("construct_wall_s")
+        return d
+
+    cfg = SimConfig(engine=EngineKind.EVENT, workgroups=64)
+    kernels = (port_chain_cuda, numpy_sum_cuda, ordered_scan_cuda)
+    reports = {}
+    for dev in ("cpu", cuda):
+        before = [k.launches for k in kernels]
+        reports[str(dev)] = simulate(name, cfg, devices=12, devices_per_node=4, fabric=fabric,
+                                     closed_loop=True, collect_segments=False, device=dev)
+        launched = [k.launches - b for k, b in zip(kernels, before)]
+        assert all((n > 0) == (dev == cuda) for n in launched[1:])
+    assert reports["cuda"].meta["lockstep_reason"] == "engaged"
+    assert fields(reports["cuda"]) == fields(reports["cpu"])

@@ -22,7 +22,9 @@ tensor or a numpy scalar) and equal floats, segments included.
   ``wall=`` is masked.
 """
 
+import contextlib
 import dataclasses
+import io
 import os
 import re
 import subprocess
@@ -437,13 +439,25 @@ def test_cli_summary_lines_equal_the_reference():
 
 @pytest.mark.parametrize("flags", [["--verify"], ["--prove-layout"], ["--sanitize"],
                                    ["--sanitize", "--detailed", "all", "--devices", "4"]])
-def test_cli_refuses_closed_loop_flags(flags, capsys):
-    # the closed loop is ported; the flags of the reference's static analyzer
-    # (repro.analysis) are not
-    with pytest.raises(SystemExit) as err:
-        port_cli.main(["--device", "cpu", *flags])
-    assert str(err.value.code).startswith(f"error: {flags[0]}")
-    assert "not ported yet (slice 5d)" in str(err.value.code)
+def test_cli_refuses_closed_loop_flags(flags):
+    # the name is kept from before the static analyzer was ported: the three
+    # flags now behave as the reference's (the verdict, the proof, the
+    # --detailed requirement, the sanitized run)
+    from repro.launch import scenario as ref_cli
+
+    outs = []
+    for main, pre in ((ref_cli.main, []), (port_cli.main, ["--device", "cpu"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            try:
+                code = main([*pre, "--scenario", "ring_allreduce", "--devices", "4", *flags,
+                             "-p", "workgroups=8"])
+            except SystemExit as e:
+                code = e.code
+        masked = re.sub(r"wall=[0-9.]+ms", "wall=<w>", buf.getvalue())
+        outs.append((code, re.sub(r"built in [0-9.]+ ms", "built in <t>", masked)))
+    assert outs[1] == outs[0]
+    assert outs[1][1] or str(outs[1][0]).startswith("error: --sanitize requires --detailed all")
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -463,11 +477,17 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_closed_loop_raises_not_implemented():
-    # the closed loop runs now (tests/test_torch_cluster.py); what it still
-    # refuses is the reference's sanitizer, which is not ported
-    cfg = P.SimConfig(workgroups=8).with_devices(4)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        P.simulate("ring_allreduce", cfg, closed_loop=True, sanitize=True, device="cpu")
+    # the name is kept from before the sanitizer was ported: a sanitized
+    # closed-loop run now equals the reference's
+    reports = [M.simulate("ring_allreduce", M.SimConfig(workgroups=8).with_devices(4),
+                          closed_loop=True, sanitize=True,
+                          **({"device": "cpu"} if M is P else {})) for M in (R, P)]
+    assert reports[1].meta["sanitized"] is True
+    fields = [_fields(r) for r in reports]
+    for d in fields:
+        d["meta"].pop("wall_breakdown", None)
+        d["meta"]["program_stats"].pop("construct_wall_s")
+    assert fields[1] == fields[0]
     sc = P.get_scenario("gemv_allreduce")(P.SimConfig())
     sc._setup_fabric(fabric="fat_tree")
     assert sc.fabric_name == "fat_tree" and sc.interconnect.n_devices == 4

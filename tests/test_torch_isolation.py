@@ -43,7 +43,8 @@ def test_every_module_imports_without_jax_or_repro():
     # the sharded substrate's sharding, zero, remat, pipeline, moe_ep and mesh,
     # the open-loop simulator's twelve core modules and its command line, and
     # the closed loop's cluster, lockstep, egpu, four scenarios and the
-    # ordered scan
+    # ordered scan, and the last slice's tiered solver, its two kernels and
+    # the static analyzer
     assert {"repro_torch.models.ssm", "repro_torch.models.xlstm", "repro_torch.optim.adamw",
             "repro_torch.data.pipeline", "repro_torch.checkpoint.store",
             "repro_torch.ft.resilience", "repro_torch.training.trainer",
@@ -62,7 +63,12 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.core.topology", "repro_torch.core.scenarios.ring_allreduce",
             "repro_torch.core.scenarios.all_to_all", "repro_torch.core.scenarios.pipeline_p2p",
             "repro_torch.core.scenarios.hierarchical_allreduce",
-            "repro_torch.kernels.ordered_scan"} <= {
+            "repro_torch.kernels.ordered_scan", "repro_torch.core.lockstep_tiered",
+            "repro_torch.core.timeline", "repro_torch.kernels.port_chain",
+            "repro_torch.kernels.numpy_sum", "repro_torch.analysis",
+            "repro_torch.analysis.layout", "repro_torch.analysis.verify",
+            "repro_torch.analysis.program_graph", "repro_torch.analysis.sanitize",
+            "repro_torch.analysis.__main__"} <= {
         m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
 
 

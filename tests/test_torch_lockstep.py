@@ -13,10 +13,9 @@ reference's solver and the port's own timeline engine, exactly.
 - A sweep revisiting a shape reuses the compiled plan, as the reference's.
 - The ordered scan's plain version against ``np.add.accumulate`` on inputs
   where any other order of the adds gives another result.
-- On the tiered presets the reference engages its tiered solver, which is not
-  ported: the port falls back to the timeline engine with the reason
-  ``TIERED_NOT_PORTED``, its counters still the reference's, and
-  ``lockstep=True`` raises naming that reason.
+- On the tiered presets both packages engage their tiered solvers, the
+  port's ``Report`` equal to the reference's, and ``lockstep=True`` engages
+  too (``tests/test_torch_tiered.py`` holds the tiered solver in full).
 """
 
 import dataclasses
@@ -27,7 +26,6 @@ import torch
 
 import repro.core as R
 import repro_torch.core as P
-from repro_torch.core.lockstep import TIERED_NOT_PORTED
 from repro_torch.kernels.ordered_scan import ordered_scan, ordered_scan_ref
 
 RANKS = (2, 3, 4, 5, 8, 16, 33, 64)
@@ -151,13 +149,11 @@ def test_tiered_fabric_falls_back_with_the_reference_counters(name, fabric):
     kw = dict(nodes=4, fabric=fabric)
     ref = _run(R, name, 16, **kw)
     port = _run(P, name, 16, **kw)
-    assert ref.meta["lockstep_reason"] == "engaged"
-    assert port.meta["lockstep_reason"] == TIERED_NOT_PORTED
+    assert ref.meta["lockstep_reason"] == port.meta["lockstep_reason"] == "engaged"
     assert port.meta["engine_impl"] == "timeline"
-    assert _counters(port) == _counters(ref)
-    with pytest.raises(ValueError, match=r"lockstep solver requested but unavailable: "
-                                         r"tiered solver not ported yet \(slice 5c\)"):
-        _run(P, name, 16, lockstep=True, **kw)
+    assert _fields(port) == _fields(ref)
+    forced = _run(P, name, 16, lockstep=True, **kw)
+    assert _fields(forced) == _fields(port)
 
 
 @pytest.mark.parametrize("case", ["segments", "syncmon", "torus2d", "pipeline"])
