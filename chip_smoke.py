@@ -240,6 +240,7 @@ import contextlib
 import dataclasses
 import gc
 import io
+import itertools
 import json
 import subprocess
 import sys
@@ -1559,25 +1560,44 @@ def _ordered_scan_at(gen: torch.Generator) -> dict:
 
 # the tiered solver's shapes at 4,096 devices on fat_tree (16 a node, 256
 # nodes): one node's up port carries 16 x 4,080 touches, and one dependency
-# level prices every node's up port in one launch
+# level prices every node's up port in one launch; all_to_all's widest
+# launch is 130 ports of 130,048 touches
 PORT_CHAIN_TOUCHES = 16 * 4080
 PORT_CHAIN_LEVEL = 256
+PORT_CHAIN_WIDEST = (130, 130_048)
 # numpy's sum: every length from 1 to one block past numpy's 8,192, and the
 # longest chunk (one up port's queued times)
 NUMPY_SUM_LENGTHS = (*range(1, 8194), PORT_CHAIN_TOUCHES)
+
+
+def _sm_clock_under_load(call, seconds: float = 0.3) -> float:
+    """The SM clock in MHz, read by nvidia-smi while ``seconds`` of ``call``'s
+    launches are queued on the card."""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    for _ in range(max(1, int(seconds / max(time.perf_counter() - t0, 1e-5)))):
+        call()
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                           check=True, capture_output=True, text=True, timeout=60).stdout
+    torch.cuda.synchronize()
+    return float(clock.split()[0])
 
 
 def _port_chain_at(gen: torch.Generator) -> dict:
     """Kernel A against its plain version, bit for bit (starts, busy and
     queued times), at a level of 256 ports of the solver's longest chain; a
     control whose queued sum is added pairwise (numpy_sum) must be rejected.
-    Timed at that shape beside the plain version (the checked call); no
+    Timed at that shape beside the plain version (the checked call), and
+    alone at the widest launch (130 x 130,048; the plain version would take
+    ~13 s there), with ns and SM cycles a touch of the longest chain; no
     single PyTorch call computes a max-plus chain."""
     from repro_torch.kernels.numpy_sum import numpy_sum_cuda
     from repro_torch.kernels.port_chain import port_chain_cuda, port_chain_ref
 
-    def case(n_ports):
-        k = PORT_CHAIN_TOUCHES
+    def case(n_ports, k=PORT_CHAIN_TOUCHES):
         ser = 0.5 + torch.rand(n_ports, generator=gen, device="cuda", dtype=torch.float64)
         # arrivals in queue order, a little faster than the port drains them:
         # busy runs with restarts between
@@ -1611,12 +1631,26 @@ def _port_chain_at(gen: torch.Generator) -> dict:
     # each ready time read once, each start written once; max, sub, add, add
     b_ms, b_by = bound_ms(T * 16, 4 * T, "float64")
     call = lambda: port_chain_cuda(rdy, offs, port, ser, busy, qd)  # noqa: E731
+    device_ms = launch_ms(call, iters=10)
+    mhz = _sm_clock_under_load(call)
+    w_rdy, w_offs, w_port, w_ser, w_busy, w_qd = case(*PORT_CHAIN_WIDEST)
+    widest = lambda: port_chain_cuda(w_rdy, w_offs, w_port, w_ser, w_busy, w_qd)  # noqa: E731
+    w_ms = launch_ms(widest, iters=10)
+    w_mhz = _sm_clock_under_load(widest)
+    k_w = PORT_CHAIN_WIDEST[1]
+    w_bound, _ = bound_ms(w_rdy.numel() * 16, 4 * w_rdy.numel(), "float64")
     return {"shape": [PORT_CHAIN_LEVEL, PORT_CHAIN_TOUCHES], "dtype": "float64",
             "checks": checks, "max_abs_err": 0.0,
             "ms": time_ms(call, iters=10, warmup=2), "plain_ms": plain_ms,
             "library_ms": None, "library": "none: no PyTorch call computes a max-plus chain",
-            "bound_ms": b_ms, "bound_by": b_by, "device_ms": launch_ms(call, iters=3),
-            "device_ms_by": "CUDA events around each launch", "library_device_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "device_ms": device_ms,
+            "device_ms_by": "CUDA events around each launch", "library_device_ms": None,
+            "sm_clock_mhz": mhz, "ns_per_touch": device_ms * 1e6 / PORT_CHAIN_TOUCHES,
+            "cycles_per_touch": device_ms * 1e3 * mhz / PORT_CHAIN_TOUCHES,
+            "widest": {"shape": list(PORT_CHAIN_WIDEST), "device_ms": w_ms,
+                       "ms": time_ms(widest, iters=10, warmup=1), "bound_ms": w_bound,
+                       "sm_clock_mhz": w_mhz, "ns_per_touch": w_ms * 1e6 / k_w,
+                       "cycles_per_touch": w_ms * 1e3 * w_mhz / k_w}}
 
 
 def _numpy_sum_at(gen: torch.Generator) -> dict:
@@ -1624,7 +1658,12 @@ def _numpy_sum_at(gen: torch.Generator) -> dict:
     1 to 8,193 and at the solver's longest chunk (65,280), and against this
     machine's np.sum up to 8,192; a left-to-right sum, the control, must
     differ.  Timed at the longest chunk beside the plain version and
-    torch.sum.
+    torch.sum, at the level of 256 such chunks beside torch.sum of its rows,
+    and over all 8,194 segments in one launch, as a flush gives many short
+    ones.  ``device_ms`` is by CUDA events around each launch (at the level
+    over copies of x, so that each call reads cold); the ``profiler_*`` keys
+    are torch.profiler's, each pair from one profile in turns, warm on one x
+    and cold over copies of x that exceed the L2.
 
     The port reproduces the reference's numpy (2.0), which sums a
     contiguous vector in blocks of 8,192 elements; numpy 2.3 sums it in one
@@ -1659,6 +1698,35 @@ def _numpy_sum_at(gen: torch.Generator) -> dict:
     one_offs = torch.tensor([0, one.numel()], device="cuda")
     n = one.numel()
     b_ms, b_by = bound_ms(n * 8 + 8, n, "float64")
+    one_calls = {"numpy_sum": lambda xx: numpy_sum_cuda(xx, one_offs), "library": torch.sum}
+    warm = _profile_calls(one_calls, [one])
+    # cold: copies that together exceed twice the L2, taken in turns
+    cold = _profile_calls(one_calls, [one.clone() for _ in range(192)])
+    # the level: 256 chunks of 65,280 in one launch, beside torch.sum of the rows
+    L = PORT_CHAIN_LEVEL
+    xl = torch.rand(L * n, generator=gen, device="cuda", dtype=torch.float64)
+    xl *= 10.0 ** torch.randint(-4, 4, xl.shape, generator=gen, device="cuda")
+    offs_l = torch.arange(0, (L + 1) * n, n, device="cuda")
+    if not torch.equal(numpy_sum_cuda(xl, offs_l), numpy_sum_ref(xl, offs_l)):
+        raise AssertionError(f"numpy_sum at [{L} x {n}] differs from its plain version")
+    rows = lambda xx: xx.view(L, -1).sum(1)  # noqa: E731
+    level_calls = {"numpy_sum": lambda xx: numpy_sum_cuda(xx, offs_l), "library": rows}
+    copies = [xl, xl.clone(), xl.clone()]  # 401 MB: no call finds its x in the 50 MB L2
+    level_warm = _profile_calls(level_calls, copies[:1])
+    level_cold = _profile_calls(level_calls, copies)
+    turn = itertools.cycle(copies)
+    lb_ms, _ = bound_ms(L * n * 8 + L * 8, L * n, "float64")
+    level = {"shape": [L, n], "exact": True, "bound_ms": lb_ms,
+             "library": "torch.sum(x.view(256, -1), 1)",
+             "device_ms": launch_ms(lambda: numpy_sum_cuda(next(turn), offs_l), iters=21),
+             "library_device_ms": launch_ms(lambda: rows(next(turn)), iters=21),
+             "device_ms_by": "CUDA events around each launch, over 3 copies of x in turns",
+             "profiler_warm_device_ms": level_warm["numpy_sum"],
+             "library_profiler_warm_device_ms": level_warm["library"],
+             "profiler_cold_device_ms": level_cold["numpy_sum"],
+             "library_profiler_cold_device_ms": level_cold["library"],
+             "ms": time_ms(lambda: numpy_sum_cuda(xl, offs_l), iters=50, warmup=5),
+             "library_ms": time_ms(lambda: rows(xl), iters=50, warmup=5)}
     return {"shape": [n], "dtype": "float64", "max_abs_err": 0.0,
             "checks": {"segments": len(lens), "elements": int(offs[-1]), "exact": True,
                        "control_left_to_right_segments_off": off, "numpy": np.__version__,
@@ -1671,7 +1739,12 @@ def _numpy_sum_at(gen: torch.Generator) -> dict:
             "bound_ms": b_ms, "bound_by": b_by,
             "device_ms": launch_ms(lambda: numpy_sum_cuda(one, one_offs), iters=20),
             "device_ms_by": "CUDA events around each launch",
-            "library_device_ms": launch_ms(lambda: torch.sum(one), iters=20)}
+            "library_device_ms": launch_ms(lambda: torch.sum(one), iters=20),
+            "profiler_warm_device_ms": warm["numpy_sum"],
+            "library_profiler_warm_device_ms": warm["library"],
+            "profiler_cold_device_ms": cold["numpy_sum"],
+            "library_profiler_cold_device_ms": cold["library"], "level": level}
+
 
 def phase_build() -> dict:
     from repro_torch.kernels import build

@@ -16,13 +16,16 @@ their sums, ``[S]``: the kernel for a CUDA tensor, the plain version
 (:func:`numpy_sum_ref`) for a CPU tensor.  The plain version evaluates the
 same tree vectorised: every leaf of every segment at once (a row of an
 ``[leaves, LEAF]`` matrix), then the inner nodes height by height, then the
-blocks of each segment in order.
+blocks of each segment in order.  The kernel takes one block a CTA
+(:func:`numpy_sum_plan`); a segment of several blocks is joined by tickets in
+a workspace kept per stream (:func:`numpy_sum_workspace`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 from typing import List, Tuple
 
 import numpy as np
@@ -30,10 +33,13 @@ import torch
 
 from . import build
 
-__all__ = ["BLOCK", "LEAF", "numpy_sum", "numpy_sum_cuda", "numpy_sum_ref"]
+__all__ = ["BLOCK", "LEAF", "NumpySumPlan", "numpy_sum", "numpy_sum_cuda", "numpy_sum_plan",
+           "numpy_sum_ref", "numpy_sum_workspace"]
 
 BLOCK = 8192  # numpy's ufunc buffer, in elements
 LEAF = 128    # numpy's PW_BLOCKSIZE
+MAX_CTAS = 2**31 - 1  # a grid's x extent
+MIN_WINDOWS = 1 << 12  # the workspace's least size, in windows (32M elements)
 
 
 def _check(name: str, x: torch.Tensor, offs: torch.Tensor) -> None:
@@ -151,11 +157,57 @@ def numpy_sum_ref(x: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@dataclass(frozen=True)
+class NumpySumPlan:
+    """One launch: a CTA for block 0 of each segment, then one for each later
+    8,192-element window of x (the block of a longer segment starting in it,
+    if any), ``ctas`` in all; ``windows`` slots of workspace and tickets (one
+    a window of x)."""
+
+    ctas: int
+    windows: int
+
+
+def numpy_sum_plan(S: int, T: int) -> NumpySumPlan:
+    """The launch for ``S`` segments of a ``T``-element vector, from what the
+    host knows (no segment length); pure, so it runs (and is tested) on the
+    CPU.  A block of a segment starts at the segment's start or 8,192
+    elements after a block start, so at most one later block starts in each
+    window ``[BLOCK c, BLOCK (c + 1))``, ``c >= 1``: the grid is ``S`` plus
+    those windows."""
+    if S < 0 or T < 0:
+        raise ValueError(f"numpy_sum_plan takes S >= 0 and T >= 0, got S={S}, T={T}")
+    later = (T - 1) // BLOCK if T else 0
+    if S + later > MAX_CTAS:
+        raise ValueError(f"numpy_sum: {S} segments of {T} elements need {S + later} CTAs, "
+                         f"more than a grid's {MAX_CTAS}")
+    return NumpySumPlan(ctas=S + later, windows=later + 1)
+
+
+_WORKSPACES: dict = {}
+
+
+def numpy_sum_workspace(device: torch.device, stream: int,
+                        windows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(ws, tickets)`` of the launches on one CUDA stream: two float64 block
+    sums and one int32 ticket a window, at least ``windows`` (and
+    ``MIN_WINDOWS``; grown to a power of two).  The tickets are zeroed once,
+    when made, and every launch leaves them at 0.  Kept a stream, so that
+    launches on two streams never share them."""
+    key = (device, stream)
+    ws, tickets = _WORKSPACES.get(key, (None, None))
+    if tickets is None or tickets.numel() < windows:
+        size = max(MIN_WINDOWS, 1 << max(windows - 1, 0).bit_length())
+        ws = torch.empty(2 * size, dtype=torch.float64, device=device)
+        tickets = torch.zeros(size, dtype=torch.int32, device=device)
+        _WORKSPACES[key] = (ws, tickets)
+    return ws, tickets
+
+
 @functools.cache
 def _launch_fn():
     fn = build.load("numpy_sum").numpy_sum_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -172,8 +224,11 @@ def numpy_sum_cuda(x: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
     out = torch.empty(S, dtype=x.dtype, device=x.device)
     if S == 0:
         return out
+    plan = numpy_sum_plan(S, x.numel())
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = _launch_fn()(x.data_ptr(), offs.data_ptr(), out.data_ptr(), S, stream)
+    ws, tickets = numpy_sum_workspace(x.device, stream, plan.windows)
+    status = _launch_fn()(x.data_ptr(), offs.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                          tickets.data_ptr(), S, plan.ctas, stream)
     if status != 0:
         raise RuntimeError(f"numpy_sum kernel launch failed with CUDA error {status}")
     numpy_sum_cuda.launches += 1

@@ -793,52 +793,137 @@ def test_flat_lockstep_solver_on_the_card_equals_the_cpu(cuda, name):
     assert fields(reports["cuda"]) == fields(reports["cpu"])
 
 
-def test_port_chain_kernel_equals_its_plain_version(cuda):
-    """Ports of 65,280 touches (one node's up port at 4,096 devices on
-    fat_tree) and of a few touches, restart runs and busy runs mixed: the
-    kernel's starts, busy and queued times bit for bit the plain version's."""
+def _same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal bit for bit: ``torch.equal`` takes -0.0 for +0.0."""
+    return got.shape == want.shape and torch.equal(got.cpu().view(torch.int64),
+                                                   want.cpu().view(torch.int64))
+
+
+def _port_chain_ready(rng, kind: str, k: int, ser: float, b0: float) -> np.ndarray:
+    """``k`` ready times of one port in queue order: ``restarts`` every touch
+    after the port drained, ``busy`` every touch waiting, ``ties`` every
+    touch ready exactly when the port frees, ``mixed`` busy runs with
+    restarts between (arrivals a little faster than the port drains)."""
+    if kind == "restarts":
+        return b0 + np.cumsum(ser + 0.5 + rng.random(k))
+    if kind == "busy":
+        return np.zeros(k)
+    if kind == "ties":
+        r, b = np.empty(k), b0
+        for t in range(k):
+            r[t] = b
+            b = max(r[t], b) + ser
+        return r
+    return np.sort(rng.random(k)) * (0.9 * k) * ser
+
+
+KINDS = ("restarts", "busy", "ties", "mixed")
+# (lengths, kinds) of one launch each
+PORT_CHAIN_CASES = {
+    # one node's up port at 4,096 devices on fat_tree (65,280) and a few short
+    "solver_lengths": ([65_280, 1, 7, 300, 4_080], ("mixed",)),
+    # a dependency level, cut short: lengths far apart in one launch
+    "level": ([4_088, 2_044, 1, 0, 3, 7, 255, 256, 257, *range(13, 4_000, 61)], KINDS),
+    # the 256-touch tiles' edges and one touch either side
+    "tile_edges": ([255, 256, 257, 511, 512, 513, 767, 768, 769, 1_023, 1_024, 1_025], KINDS),
+    "all_restarts": ([1, 8, 255, 256, 257, 1_000, 3_001, 4_096], ("restarts",)),
+    "all_busy": ([1, 8, 255, 256, 257, 1_000, 3_001, 4_096], ("busy",)),
+    "ties": ([1, 8, 255, 256, 257, 1_000, 3_001, 4_096], ("ties",)),
+    "short": ([n % 8 for n in range(200)], KINDS),
+    "one_segment": ([20_000], ("mixed",)),
+    "wide": ([n * 7 % 41 for n in range(4_096)], KINDS),
+}
+
+
+@pytest.mark.parametrize("unaligned", [False, True])
+@pytest.mark.parametrize("case", sorted(PORT_CHAIN_CASES))
+def test_port_chain_kernel_equals_its_plain_version(cuda, case, unaligned):
+    """One launch over segments of the solver's shapes, cut short, and of
+    every kind of chain: the kernel's starts, busy and queued times bit for
+    bit the plain version's.  ``unaligned``: the ready times start 8 bytes
+    past a 16-byte boundary, so the tiles' copies split at the edges."""
     from repro_torch.kernels.port_chain import port_chain_cuda, port_chain_ref
 
-    rng = np.random.default_rng(5)
-    lens = [65_280, 1, 7, 300, 4_080]
-    rdy = np.concatenate([np.sort(rng.random(k)) * k * 0.8 for k in lens])
+    lens, kinds = PORT_CHAIN_CASES[case]
+    rng = np.random.default_rng(sorted(PORT_CHAIN_CASES).index(case))
+    S = len(lens)
+    ser = 0.5 + rng.random(S)
+    port = rng.permutation(2 * S)[:S]
+    busy0, qd0 = rng.random(2 * S), rng.random(2 * S)
+    rdy = np.concatenate([[0.0]] + [
+        _port_chain_ready(rng, kinds[i % len(kinds)], k, ser[i], busy0[port[i]])
+        for i, k in enumerate(lens)])
     offs = torch.tensor(np.concatenate(([0], np.cumsum(lens))))
-    port = torch.tensor([3, 0, 9, 4, 7])
-    ser = torch.from_numpy(0.5 + rng.random(len(lens)))
-    busy0, qd0 = torch.from_numpy(rng.random(10)), torch.from_numpy(rng.random(10))
     runs = {}
     for dev in ("cpu", cuda):
-        busy, qd = busy0.clone().to(dev), qd0.clone().to(dev)
+        ready = torch.from_numpy(rdy).to(dev)
+        ready = ready[1:] if unaligned else ready[1:].clone()
+        busy, qd = torch.from_numpy(busy0.copy()).to(dev), torch.from_numpy(qd0.copy()).to(dev)
         fn = port_chain_cuda if dev == cuda else port_chain_ref
         before = port_chain_cuda.launches
-        starts = fn(torch.from_numpy(rdy).to(dev), offs.to(dev), port.to(dev), ser.to(dev),
-                    busy, qd)
+        starts = fn(ready, offs.to(dev), torch.from_numpy(port).to(dev),
+                    torch.from_numpy(ser).to(dev), busy, qd)
+        torch.cuda.synchronize()
         assert port_chain_cuda.launches - before == (1 if dev == cuda else 0)
-        runs[str(dev)] = (starts.cpu(), busy.cpu(), qd.cpu())
+        runs[str(dev)] = (starts, busy, qd)
     for got, want in zip(runs["cuda"], runs["cpu"]):
-        assert torch.equal(got, want)
+        assert _same_bits(got, want)
 
 
-def test_numpy_sum_kernel_equals_np_sum(cuda):
-    """Segments of 1-8,193 and 65,280 elements: the plain version's sums bit
-    for bit, which are numpy's where a left-to-right sum differs.  Above
-    8,192 elements only numpy before 2.3 cuts the sum into 8,192-element
-    blocks, as the reference's numpy does; the CPU tests hold the plain
-    version to it there."""
-    from repro_torch.kernels.numpy_sum import BLOCK, numpy_sum_cuda, numpy_sum_ref
+def _sum_values(rng, n: int) -> np.ndarray:
+    """Magnitudes over eight decades: any other order of the adds shows."""
+    return rng.random(n) * 10.0 ** rng.integers(-4, 4, n)
 
-    rng = np.random.default_rng(6)
-    lens = [*range(1, 300), 1000, 4095, 4096, 4097, 8191, 8192, 8193, 65_280]
-    xs = [rng.random(k) * 10.0 ** rng.integers(-4, 4, k) for k in lens]
+
+LEAF_EDGES = [127, 128, 129, 135, 136]
+# (lengths, segments of -0.0) of one launch each
+NUMPY_SUM_CASES = {
+    "lengths_1_to_8193": ([*range(1, 300), 1000, 4095, 4096, 4097, 8191, 8192, 8193, 65_280],
+                          ()),
+    # a dependency level, cut short: lengths far apart in one launch, the
+    # blocks' edges and one element either side, 130,048 (16 blocks)
+    "level": ([0, 1, 7, 8, *LEAF_EDGES, 4_088, 8_191, 8_192, 8_193, 16_383, 16_384, 16_385,
+               24_577, 65_280, 130_048, *range(3, 20_000, 97)], ()),
+    "leaves": ([*LEAF_EDGES, *(8_192 + n for n in LEAF_EDGES),
+                *(16_384 + n for n in LEAF_EDGES)], ()),
+    "short": ([n % 8 for n in range(10_000)], ()),
+    "negative_zero": ([1, 5, 8, 136, 9_000, 3, 200], (0, 1, 2, 3, 4)),
+    "one_segment": ([130_048], ()),
+    "wide": ([n * 37 % 5_003 for n in range(4_096)], ()),
+    "empty_ends": ([0, 0, 9_000, 0, 17, 0, 0], ()),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NUMPY_SUM_CASES))
+def test_numpy_sum_kernel_equals_np_sum(cuda, case):
+    """One launch over segments of the solver's shapes, cut short, and at
+    every edge of numpy's tree: the plain version's sums bit for bit, twice
+    (the tickets reset themselves), the tickets left at 0; numpy's own where
+    a segment is one tree.  Above 8,192 elements only numpy before 2.3 cuts
+    the sum into 8,192-element blocks, as the reference's numpy does; the
+    CPU tests hold the plain version to it there."""
+    from repro_torch.kernels.numpy_sum import (BLOCK, numpy_sum_cuda, numpy_sum_plan,
+                                               numpy_sum_ref, numpy_sum_workspace)
+
+    lens, neg = NUMPY_SUM_CASES[case]
+    rng = np.random.default_rng(sorted(NUMPY_SUM_CASES).index(case) + 6)
+    xs = [np.full(k, -0.0) if i in neg else _sum_values(rng, k) for i, k in enumerate(lens)]
     x = torch.from_numpy(np.concatenate(xs))
     offs = torch.tensor(np.concatenate(([0], np.cumsum(lens))))
     before = numpy_sum_cuda.launches
-    got = numpy_sum_cuda(x.to(cuda), offs.to(cuda)).cpu()
-    assert numpy_sum_cuda.launches == before + 1
-    assert torch.equal(got, numpy_sum_ref(x, offs))
-    blocked = [i for i, k in enumerate(lens) if k <= BLOCK]
-    want = torch.tensor([np.sum(xs[i]) for i in blocked])
-    assert torch.equal(got[blocked], want)
+    got = [numpy_sum_cuda(x.to(cuda), offs.to(cuda)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert numpy_sum_cuda.launches == before + 2
+    want = numpy_sum_ref(x, offs)
+    assert _same_bits(got[0], want) and _same_bits(got[1], want)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    tickets = numpy_sum_workspace(got[0].device, stream,
+                                  numpy_sum_plan(len(lens), x.numel()).windows)[1]
+    assert int(tickets.count_nonzero()) == 0
+    one_tree = [i for i, k in enumerate(lens) if k <= BLOCK]
+    assert _same_bits(got[0][one_tree], torch.tensor([np.sum(xs[i]) for i in one_tree]))
+    if neg:
+        assert _same_bits(got[0][list(neg)], torch.zeros(len(neg), dtype=torch.float64))
 
 
 @pytest.mark.parametrize("name", ["ring_allreduce", "all_to_all", "hierarchical_allreduce"])

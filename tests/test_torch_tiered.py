@@ -17,11 +17,16 @@ against the reference's solver and the port's own timeline engine, exactly.
 - the plain port chain against the reference's ``_chain`` (restart runs,
   ties, busy runs past the 32 and 64 chunk doublings) and the plain numpy
   sum against ``np.sum`` at lengths 1-299, 1,000, 4,095-4,097 and
-  8,191-8,193, 16,385 and 65,280, where a left-to-right sum differs.
+  8,191-8,193, 16,385 and 65,280, where a left-to-right sum differs;
+- the numpy-sum kernel's launch plan at its extremes, and its constants
+  (read from its source) against the plain version's tree.
 """
 
 import dataclasses
+import functools
 import random
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -30,7 +35,8 @@ import torch
 import repro.core as R
 import repro_torch.core as P
 from repro.core.lockstep_tiered import _chain
-from repro_torch.kernels.numpy_sum import numpy_sum, numpy_sum_ref
+from repro_torch.kernels.numpy_sum import (BLOCK, LEAF, numpy_sum, numpy_sum_plan,
+                                           numpy_sum_ref)
 from repro_torch.kernels.port_chain import port_chain, port_chain_ref
 
 TIERED = ("two_tier", "fat_tree", "rail_optimized")
@@ -230,3 +236,39 @@ def test_plain_numpy_sum_equals_np_sum():
 def test_numpy_sum_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="float64"):
         numpy_sum(torch.zeros(3), torch.tensor([0, 3]))
+
+
+@pytest.mark.parametrize("S,T,plan", [
+    (0, 0, (0, 1)),                       # no segment
+    (5, 0, (5, 1)),                       # an empty x: five empty segments
+    (1, 1 << 20, (128, 128)),             # one segment of 2^20: 127 later blocks
+    (100_000, 100_000, (100_012, 13)),    # 10^5 one-element segments
+    (256, 256 * 65_280, (2_295, 2_040)),  # the level of 256 up ports
+])
+def test_numpy_sum_plan_at_its_extremes(S, T, plan):
+    """The grid is ``S`` plus one CTA a later 8,192-element window of x; the
+    workspace has a slot a window (window 0 too)."""
+    got = numpy_sum_plan(S, T)
+    assert (got.ctas, got.windows) == plan
+    with pytest.raises(ValueError, match="S >= 0"):
+        numpy_sum_plan(-1, T)
+    with pytest.raises(ValueError, match="more than a grid"):
+        numpy_sum_plan(2**31, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _tree_depth(n):
+    if n <= LEAF:
+        return 0
+    m2 = (n // 2) & ~7
+    return 1 + max(_tree_depth(m2), _tree_depth(n - m2))
+
+
+def test_numpy_sum_tree_is_at_most_7_deep():
+    """The kernel names a block's nodes by 7-bit paths: its block, leaf and
+    depth constants, read from its source, are the plain version's and hold
+    numpy's deepest tree."""
+    src = (Path(numpy_sum_ref.__code__.co_filename).parent / "csrc" / "numpy_sum.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr \w+ (k\w+) = (\d+);", src)}
+    assert (const["kBlock"], const["kLeaf"]) == (BLOCK, LEAF)
+    assert max(_tree_depth(n) for n in range(1, BLOCK + 1)) == const["kDepth"] == 7
