@@ -156,8 +156,8 @@ Phases, each printing one JSON line:
   sharded_serve  serving on a (2, 2) mesh: 4 ranks, one process each,
            sharing the card in a gloo group, at full width and depth in
            float32 (seed-0 weights drawn whole and sliced) through
-           ServeEngine: gemma3-1b 4 x (32 + 8) tokens (head-parallel, the
-           one KV head read by both model ranks) and olmoe-1b-7b 4 x (32 + 8)
+           ServeEngine: gemma3-1b 4 x (8 + 8) tokens (head-parallel, the
+           one KV head read by both model ranks) and olmoe-1b-7b 4 x (8 + 8)
            (the expert-parallel gather path); then gemma3-1b 1 x (504 + 16)
            through Model.prefill of the prompt into caches of 520 slots and
            16 decode steps (the row does not divide over data: every cache's
@@ -175,7 +175,7 @@ Phases, each printing one JSON line:
   sharded_blocks  the Mamba2, mLSTM and MLA blocks computing their heads'
            share on a (2, 2) mesh (4 ranks sharing the card, float32, seed-0
            weights drawn whole and sliced), one line a case: zamba2-2.7b at
-           full width and depth 4 x (32 + 8) through ServeEngine (its Mamba2
+           full width and depth 4 x (8 + 8) through ServeEngine (its Mamba2
            blocks and shared block head-parallel, each state the rank's
            heads'); minicpm3-4b at full width and depth 4 x (32 + 8) through
            Model.prefill and 8 decode steps (MLA head-parallel, the latents'
@@ -423,13 +423,14 @@ REMAT_LAUNCHES_PER_STEP = {p: {"rmsnorm": 106 if p == "none" else 210, "rmsnorm_
                            for p in REMAT_POLICIES}
 # sharded serving (slice 4d) on a (2, 2) mesh in float32, each run (arch,
 # requests, prompt tokens, new tokens, how the prompt goes in): gemma3-1b and
-# olmoe-1b-7b batched through the engine (the prompt a token a step), then
+# olmoe-1b-7b batched through the engine (the prompt a token a step, 8 of
+# them: each step is ~130-250 gloo exchanges through the host), then
 # gemma3-1b's one request past its 512-slot window (sequence-parallel), its
 # prompt through one prefill (a step a token would take 504 steps of about
 # 130 exchanges through the host); every step's logits against the one-rank
 # run's
 SERVE_MESH = {"data": 2, "model": 2}
-SHARDED_SERVE_RUNS = (("gemma3-1b", 4, 32, 8, "engine"), (MAIN_ARCH, 4, 32, 8, "engine"),
+SHARDED_SERVE_RUNS = (("gemma3-1b", 4, 8, 8, "engine"), (MAIN_ARCH, 4, 8, 8, "engine"),
                       ("gemma3-1b", 1, 504, 16, "prefill"))
 SHARDED_SERVE_TOL = 1e-4
 # partitioned compute for the Mamba2, mLSTM and MLA blocks (slice 4e), float32,
@@ -445,7 +446,7 @@ SHARDED_SERVE_TOL = 1e-4
 # entries outside 1e-5 + 1e-5 |p|; after step 1 the leaf BLOCK_PLANTED_LEAF
 # with its update undone must fail that bound.  Each case's peak beside the
 # same work with those blocks replicated over model (whole on every rank)
-BLOCK_SERVE_RUNS = (("zamba2-2.7b", 4, 32, 8, "engine"), ("minicpm3-4b", 4, 32, 8, "prefill"))
+BLOCK_SERVE_RUNS = (("zamba2-2.7b", 4, 8, 8, "engine"), ("minicpm3-4b", 4, 32, 8, "prefill"))
 BLOCK_SERVE_TOL = 1e-5
 BLOCK_ANCHOR_FACTOR = 2.0
 BLOCK_LEAF_SLACK = 8  # entries: a small leaf's few near-zero gradients that rounding flips
@@ -530,6 +531,30 @@ def launch_ms(fn, iters: int = 10) -> float:
     return total / iters
 
 
+# torch.cuda._sleep ahead of a queued timing: ~0.1 ms at ~1.98 GHz, longer
+# than a call's host dispatch
+QUEUE_CYCLES = 200_000
+
+
+def queued_ms(fn, iters: int = 3) -> float:
+    """Median device ms of one call by CUDA events around it, queued behind
+    ``torch.cuda._sleep``: the card is busy while the host dispatches the
+    call, so the events time the kernel (and its launch), not the dispatch."""
+    fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(QUEUE_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
 def bound_ms(bytes_moved: float, ops: float, dtype: str) -> tuple[float, str]:
     """The least time for the work: bytes over HBM rate or ops over peak rate."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S
@@ -570,20 +595,68 @@ def _worst_ratio(out: torch.Tensor, want: torch.Tensor, tol: dict = BF16_TOL) ->
     return ((out.float() - want).abs() / lim).max().item()
 
 
+def _device_rows(events) -> list:
+    """The device events of a profile summed by kernel name: ``(name, µs,
+    launches)``, the profiler's step annotation left out."""
+    totals = {}
+    for evt in events:
+        name = evt.name()
+        if str(evt.device_type()).endswith("CUDA") and not name.startswith("ProfilerStep"):
+            us, n = totals.get(name, (0.0, 0))
+            totals[name] = (us + evt.duration_ns() / 1e3, n + 1)
+    return [(name, us, n) for name, (us, n) in totals.items()]
+
+
+_ROWS_HELD = []  # whether this process has held _device_rows to key_averages()
+
+
+def _averaged_rows(averages) -> list:
+    """``_device_rows`` from the profiler's own key_averages()."""
+
+    def device_us(evt) -> float:
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(evt, attr):
+                return float(getattr(evt, attr))
+        return 0.0
+
+    return [(evt.key, device_us(evt), evt.count) for evt in averages
+            if str(getattr(evt, "device_type", "")).endswith("CUDA")
+            and not evt.key.startswith("ProfilerStep")]
+
+
+def _profile_rows(prof) -> list:
+    """A finished profile's device rows (``_device_rows``), summed from its
+    raw events: key_averages() first builds every event into Python objects,
+    which took ~0.15 ms an event, up to a minute for the 10^5 launches of
+    a few decode steps or of one train step.  The first profile of a process
+    is also read through key_averages(), and the two must agree."""
+    rows = _device_rows(prof.profiler.kineto_results.events())
+    if not _ROWS_HELD:
+        want = {key: (us, n) for key, us, n in _averaged_rows(prof.key_averages())}
+        got = {key: (us, n) for key, us, n in rows}
+        if got.keys() != want.keys() or any(
+                got[k][1] != want[k][1] or abs(got[k][0] - want[k][0]) > 1e-6 * want[k][0] + 1e-3
+                for k in got):
+            raise AssertionError(f"the profile's raw device events {sorted(got.items())[:8]} "
+                                 f"differ from its key_averages() {sorted(want.items())[:8]}")
+        _ROWS_HELD.append(True)
+    return rows
+
+
 def _profiled(warmup, run, host_ops: bool = True) -> tuple:
-    """``(key_averages, run's result)``: ``run()`` under torch.profiler after
+    """``(device rows, run's result)``: ``run()`` under torch.profiler after
     one warm-up cycle of ``warmup()`` whose events are dropped: a long
     session can miss its first records, so the measured calls come only
-    after the tracer has run for a cycle.  ``host_ops=False`` records the
-    device's activity alone (a train step's 10^5 host ops take the
-    profiler minutes to process)."""
+    after the tracer has run for a cycle.  The rows are ``_profile_rows``.
+    ``host_ops=False`` records the device's activity alone (a train step's
+    10^5 host ops)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     ready = []
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
     with profile(activities=activities,
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                 on_trace_ready=lambda p: ready.append(p.key_averages())) as prof:
+                 on_trace_ready=lambda p: ready.append(_profile_rows(p))) as prof:
         warmup()
         torch.cuda.synchronize()
         prof.step()
@@ -593,21 +666,10 @@ def _profiled(warmup, run, host_ops: bool = True) -> tuple:
     return ready[0], out
 
 
-def _device_ms_per_launch(averages, names) -> tuple[list, dict]:
-    """The profile's device rows ``(name, µs, count)``, longest first, and the
-    mean device time per launch of each named kernel (None if it is absent)."""
-
-    def device_us(evt) -> float:
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(evt, attr):
-                return float(getattr(evt, attr))
-        return 0.0
-
-    # device-side events only: a CPU op's entry repeats its kernels' time, and
-    # the profiler's step annotation (ProfilerStep*) spans the whole step
-    rows = [(evt.key, device_us(evt), evt.count) for evt in averages
-            if str(getattr(evt, "device_type", "")).endswith("CUDA")
-            and not evt.key.startswith("ProfilerStep")]
+def _device_ms_per_launch(rows, names) -> tuple[list, dict]:
+    """A profile's device rows ``(name, µs, count)`` (``_profiled``), longest
+    first, and the mean device time per launch of each named kernel (None if
+    it is absent)."""
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     per_kernel = {}
     for name in names:  # summed over the kernel's instantiations (rmsnorm: one per width class)
@@ -666,8 +728,8 @@ def _profile_calls(calls: dict, operands: list, reps: int = 20,
     for attempt in range(attempts):
         time.sleep(PROFILE_PAUSE_S * attempt)
         torch.cuda.synchronize()
-        averages, _ = _profiled(warmup, run)
-        rows, _ = _device_ms_per_launch(averages, ())
+        found, _ = _profiled(warmup, run)
+        rows, _ = _device_ms_per_launch(found, ())
         out = {k: 0.0 for k in calls}
         out["memset"] = 0.0
         if launch_rows is not None:
@@ -1513,49 +1575,116 @@ def _family_heads(gen: torch.Generator) -> dict:
     return out
 
 
-# the ordered scan at the flat lockstep solver's shapes at 4096 ranks: the
-# all_to_all fan-out's busy chains [2049, 4096] and queued times [2048, 4096],
-# a block of 256 stages' queued times [4096, 256], a block's total [257, 1]
-ORDERED_SCAN_SHAPES = ((2049, 4096), (2048, 4096), (4096, 256), (257, 1), (1, 1))
+# the ordered scan's path shapes in the cluster phase's card rows (entry, L,
+# R, read cold), from tools/tiered_kernels.py --census: the all_to_all
+# fan-out's busy chains (lockstep.py:921) and their queued totals (:928) at
+# 4,096 ranks, x past the L2; a block of 256 stages' queued totals (:666,
+# 64 of 91 launches) and a shorter one, each just written; a block's total
+# (:669); the tiered solver's tallest g_q and cls_q flushes
+# (lockstep_tiered.py:1223, :1228) and a [1, 1] term
+ORDERED_SCAN_PATHS = (("ordered_scan", 2049, 4096, True), ("ordered_total", 2048, 4096, True),
+                      ("ordered_total", 4096, 256, False), ("ordered_total", 1024, 256, False),
+                      ("ordered_total", 257, 1, False), ("ordered_total", 12_289, 1, False),
+                      ("ordered_total", 12_289, 2, False), ("ordered_total", 8_835, 3, False),
+                      ("ordered_total", 1, 1, False))
+# checked beside them, both entries: odd R (wide and narrow), a tall column,
+# x 8 bytes past a 16-byte boundary, one row
+ORDERED_SCAN_CHECKS = ((257, 4097, False), (1000, 5, False), (100_000, 1, False),
+                       (300, 256, True), (1, 4096, False), (1, 1, False))
+DADD_CYCLES = 8.1  # a float64 add's latency (tools/tiered_kernels.py --latency)
+
+
+def _ordered_scan_x(gen: torch.Generator, L: int, R: int, unaligned: bool = False):
+    """Columns like [1e16, 1, -1e16, 1, ...] with noise, where any order of
+    the adds but left to right gives other bits; ``unaligned``: the data 8
+    bytes past a 16-byte boundary."""
+    flat = torch.randn(L * R + 1, generator=gen, device="cuda", dtype=torch.float64)
+    x = (flat[1:] if unaligned else flat[1:].clone()).view(L, R)
+    x[0::4] += 1e16
+    x[1::4] = 1.0
+    x[2::4] -= 1e16
+    return x
+
+
+def _ordered_scan_check(entry: str, x: torch.Tensor, plain: bool = True) -> dict:
+    """One entry bit for bit against np.add.accumulate (its last row for
+    the totals) and, where ``plain``, its plain version on the card."""
+    from repro_torch.kernels import ordered_scan as mod
+
+    got = getattr(mod, f"{entry}_cuda")(x)
+    want = np.add.accumulate(x.cpu().numpy(), axis=0)
+    if entry == "ordered_total":
+        want = want[-1]
+    same = np.array_equal(got.cpu().numpy().view(np.int64), want.view(np.int64))
+    if plain:
+        same = same and torch.equal(got.view(torch.int64),
+                                    getattr(mod, f"{entry}_ref")(x).view(torch.int64))
+    L, R = x.shape
+    if not same:
+        raise AssertionError(f"{entry} [{L}, {R}] differs from np.add.accumulate or its "
+                             "plain version")
+    lib = torch.cumsum(x, 0)[-1] if entry == "ordered_scan" else torch.sum(x, 0)
+    last = got[-1] if entry == "ordered_scan" else got
+    return {"entry": entry, "shape": [L, R], "aligned": x.data_ptr() % 16 == 0,
+            "plan": mod.ordered_scan_plan(L, R, x.data_ptr() % 16 == 0), "exact": True,
+            "plain_checked": plain, "library_columns_off": int((lib != last).sum())}
 
 
 def _ordered_scan_at(gen: torch.Generator) -> dict:
-    """The ordered scan against its plain version and np.add.accumulate, bit
-    for bit, at the solver's shapes, on columns where any other order of the
-    adds gives another result; timed at the fan-out chain's shape beside the
-    plain version and torch.cumsum, and by device time in one profile."""
-    from repro_torch.kernels.ordered_scan import ordered_scan_cuda, ordered_scan_ref
-
-    def adversarial(L, R):
-        x = torch.randn(L, R, generator=gen, device="cuda", dtype=torch.float64)
-        x[0::4] += 1e16
-        x[1::4] = 1.0
-        x[2::4] -= 1e16
-        return x
+    """Both entries of the ordered scan bit for bit against np.add.accumulate
+    and their plain versions at the cluster phase's path shapes and at
+    ORDERED_SCAN_CHECKS.  Each path shape timed: device time of the kernel
+    alone (torch.profiler, in turns with the library call: torch.cumsum(x,
+    0) for the scan, torch.sum(x, 0) for the totals, which adds in other
+    bits), events around each launch (host dispatch included) and events
+    queued behind torch.cuda._sleep; cold over 3 copies of x (past the L2)
+    where the solver reads it cold, else on the one x just written.  Beside
+    each: the bound by bytes and the chain floor, (L - 1) float64 adds of
+    DADD_CYCLES at the SM clock measured under load.  The summary keys are
+    the [2049, 4096] scan's."""
+    from repro_torch.kernels.ordered_scan import (ordered_scan_cuda, ordered_scan_ref,
+                                                  ordered_total_cuda)
 
     checks = []
-    for L, R in ORDERED_SCAN_SHAPES:
-        x = adversarial(L, R)
-        got = ordered_scan_cuda(x)
-        plain = ordered_scan_ref(x)
-        want = np.add.accumulate(x.cpu().numpy(), axis=0)
-        if not (torch.equal(got, plain) and np.array_equal(got.cpu().numpy(), want)):
-            raise AssertionError(f"ordered_scan [{L}, {R}] differs from its plain version")
-        lib = torch.cumsum(x, dim=0)
-        checks.append({"shape": [L, R], "exact": True,
-                       "cumsum_columns_off": int((lib[-1] != got[-1]).sum())})
-    L, R = ORDERED_SCAN_SHAPES[0]
-    x = adversarial(L, R)
-    b_ms, b_by = bound_ms(2 * L * R * 8, L * R, "float64")
-    same_run = _profile_calls({"ordered_scan": ordered_scan_cuda,
-                               "library": lambda xx: torch.cumsum(xx, dim=0)}, [x])
+    for L, R, unaligned in ORDERED_SCAN_CHECKS:
+        x = _ordered_scan_x(gen, L, R, unaligned)
+        checks += [_ordered_scan_check(e, x, plain=L <= 20_000)
+                   for e in ("ordered_scan", "ordered_total")]
+    entries = {"ordered_scan": ordered_scan_cuda, "ordered_total": ordered_total_cuda}
+    x_tall = _ordered_scan_x(gen, 12_289, 1)  # a chain long enough to hold the clock up
+    mhz = _sm_clock_under_load(lambda: ordered_total_cuda(x_tall))
+    paths = []
+    for entry, L, R, cold in ORDERED_SCAN_PATHS:
+        x = _ordered_scan_x(gen, L, R)
+        checks.append(_ordered_scan_check(entry, x))
+        fn = entries[entry]
+        lib, lib_name = ((lambda xx: torch.cumsum(xx, 0)), "torch.cumsum(x, 0)") \
+            if entry == "ordered_scan" else ((lambda xx: torch.sum(xx, 0)),
+                                             "torch.sum(x, 0), other bits")
+        copies = [x, x.clone(), x.clone()] if cold else [x]
+        prof = _profile_calls({"ordered_scan": fn, "library": lib}, copies)
+        turn = itertools.cycle(copies)
+        out_bytes = L * R * 8 if entry == "ordered_scan" else R * 8
+        b_ms, b_by = bound_ms(L * R * 8 + out_bytes, max(L - 1, 1) * R, "float64")
+        paths.append({"entry": entry, "shape": [L, R], "read": "cold" if cold else "warm",
+                      "device_ms": prof["ordered_scan"], "library": lib_name,
+                      "library_device_ms": prof["library"],
+                      "events_ms": launch_ms(lambda: fn(next(turn)), iters=10),
+                      "queued_ms": queued_ms(lambda: fn(next(turn)), iters=5),
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "chain_floor_ms": (L - 1) * DADD_CYCLES / mhz * 1e-3})
+        del x, copies
+    head = paths[0]
+    L, R = head["shape"]
+    x = _ordered_scan_x(gen, L, R)
     return {"shape": [L, R], "dtype": "float64", "checks": checks, "max_abs_err": 0.0,
             "ms": time_ms(lambda: ordered_scan_cuda(x), iters=50, warmup=5),
             "plain_ms": time_ms(lambda: ordered_scan_ref(x), iters=3, warmup=1),
             "library_ms": time_ms(lambda: torch.cumsum(x, dim=0), iters=50, warmup=5),
-            "bound_ms": b_ms, "bound_by": b_by, "device_ms": same_run["ordered_scan"],
-            "library_device_ms": same_run["library"]}
-
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "device_ms": head["device_ms"], "library_device_ms": head["library_device_ms"],
+            "device_ms_by": "torch.profiler, kernel alone, x read cold",
+            "sm_clock_mhz": mhz, "dadd_cycles": DADD_CYCLES, "paths": paths}
 
 
 # the tiered solver's shapes at 4,096 devices on fat_tree (16 a node, 256
@@ -2300,6 +2429,18 @@ def _cluster_host_check(row: dict, kind: str) -> tuple:
     return _cluster_engine_counters(report), None, wall
 
 
+def _cluster_out(row: dict, reason: str, got: dict) -> dict:
+    """A row's line, and the fields that differ from the record's: its
+    counters, and the lockstep reason if it does."""
+    wrong = _cluster_mismatch(got, row)
+    if reason != row["lockstep_reason"]:
+        wrong.append("lockstep_reason")
+    tiered = row["devices_per_node"] is not None
+    return {"devices": row["devices"], "devices_per_node": row["devices_per_node"],
+            "fabric": row["fabric"] or ("two_tier" if tiered else "ring"),
+            "lockstep_reason": reason, "reference_wall_s": row["wall_time_s"]}, wrong
+
+
 def _solver_kernels() -> dict:
     from repro_torch.kernels.numpy_sum import numpy_sum_cuda
     from repro_torch.kernels.ordered_scan import ordered_scan_cuda
@@ -2317,7 +2458,9 @@ def phase_cluster(card: str) -> list:
     The host runs (those checks, and the rows the record shows on the host
     engines, which touch no card) go to CLUSTER_HOST_WORKERS worker
     processes at once while the card runs its rows, so their walls are taken
-    side by side.  One line a scenario, then the phase's line."""
+    side by side.  The card runs all its rows before the first host result
+    is read, so it never waits on the host.  One line a scenario, then the
+    phase's line."""
     import concurrent.futures
     import multiprocessing
 
@@ -2344,47 +2487,52 @@ def phase_cluster(card: str) -> list:
         kernels = _solver_kernels()
         for fn in kernels.values():
             fn.launches = 0
+        kernels["ordered_scan"].by_shape.clear()
+        # the card rows first, without waiting on the host: their checks'
+        # results are read in the second pass, once the card is done
+        outs, mine = {}, {}
+        for i, row in enumerate(rows):
+            if (i, "record") in host:
+                continue
+            report, wall = _cluster_run(row, "cuda")
+            outs[i] = _cluster_out(row, report.meta["lockstep_reason"], _cluster_counters(report))
+            if row["lockstep_reason"] == "engaged" and outs[i][0]["lockstep_reason"] == "engaged":
+                outs[i][0].update(solver="tiered" if row["devices_per_node"] is not None
+                               else "flat", wall_card_s=wall,
+                               solve_card_s=report.meta["wall_breakdown"]["solve_s"],
+                               compile_card_s=report.meta["wall_breakdown"].get("compile_s"))
+                if (i, "cpu") in host:
+                    mine[i, "cpu"] = _cluster_fields(report)
+                if (i, "timeline") in host:
+                    mine[i, "timeline"] = _cluster_engine_counters(report)
+            else:
+                outs[i][0]["wall_host_s"] = wall
+            del report
         lines, mismatches = {}, []
         for i, row in enumerate(rows):
-            name = row["scenario"]
             if (i, "record") in host:
                 got, reason, wall = host[i, "record"].result()
-            else:
-                report, wall = _cluster_run(row, "cuda")
-                got, reason = _cluster_counters(report), report.meta["lockstep_reason"]
-            wrong = _cluster_mismatch(got, row)
-            if reason != row["lockstep_reason"]:
-                wrong.append("lockstep_reason")
+                outs[i] = _cluster_out(row, reason, got)
+                outs[i][0]["wall_host_s"] = wall
+            out, wrong = outs[i]
+            where = f"cluster {row['scenario']} {out['fabric']} {row['devices']}"
             if wrong:
                 mismatches.append({"row": {k: row[k] for k in ("scenario", "devices",
                                                                "devices_per_node", "fabric")},
                                    "fields": wrong})
-            tiered = row["devices_per_node"] is not None
-            out = {"devices": row["devices"], "devices_per_node": row["devices_per_node"],
-                   "fabric": row["fabric"] or ("two_tier" if tiered else "ring"),
-                   "lockstep_reason": reason, "reference_wall_s": row["wall_time_s"]}
-            if row["lockstep_reason"] == "engaged" and reason == "engaged":
-                solver = "tiered" if tiered else "flat"
-                out.update(solver=solver, wall_card_s=wall,
-                           solve_card_s=report.meta["wall_breakdown"]["solve_s"],
-                           compile_card_s=report.meta["wall_breakdown"].get("compile_s"))
-                if (i, "cpu") in host:
-                    cpu, solve_cpu, cpu_wall = host[i, "cpu"].result()
-                    if _cluster_fields(report) != cpu:
-                        raise AssertionError(f"cluster {name} {out['fabric']} {row['devices']}: "
-                                             f"the card's {solver} solver differs from the CPU "
-                                             "solver")
-                    out.update(wall_cpu_s=cpu_wall, solve_cpu_s=solve_cpu)
-                if (i, "timeline") in host:
-                    counters, _, host_wall = host[i, "timeline"].result()
-                    if counters != _cluster_engine_counters(report):
-                        raise AssertionError(f"cluster {name} {out['fabric']} {row['devices']}: "
-                                             f"the card's {solver} solver differs from the host "
-                                             "timeline engine")
-                    out["wall_timeline_host_s"] = host_wall
-            else:
-                out["wall_host_s"] = wall
-            lines.setdefault(name, []).append(out)
+            if (i, "cpu") in mine:
+                cpu, solve_cpu, cpu_wall = host[i, "cpu"].result()
+                if mine[i, "cpu"] != cpu:
+                    raise AssertionError(f"{where}: the card's {out['solver']} solver differs "
+                                         "from the CPU solver")
+                out.update(wall_cpu_s=cpu_wall, solve_cpu_s=solve_cpu)
+            if (i, "timeline") in mine:
+                counters, _, host_wall = host[i, "timeline"].result()
+                if counters != mine[i, "timeline"]:
+                    raise AssertionError(f"{where}: the card's {out['solver']} solver differs "
+                                         "from the host timeline engine")
+                out["wall_timeline_host_s"] = host_wall
+            lines.setdefault(row["scenario"], []).append(out)
     finally:
         pool.shutdown(cancel_futures=True)
     launches = {k: fn.launches for k, fn in kernels.items()}
@@ -2402,6 +2550,9 @@ def phase_cluster(card: str) -> list:
         raise AssertionError(f"cluster: a result with one flag read added gave {rejected}")
     out_lines = [{"phase": "cluster", "scenario": name, "rows": rs, "card": card}
                  for name, rs in lines.items()]
+    # the ordered scan's launches by entry and shape: [entry, L, R, launches]
+    out_lines.append({"phase": "cluster", "ordered_scan_launches_by_shape": [
+        [*key, n] for key, n in sorted(kernels["ordered_scan"].by_shape.items())]})
     engaged = [r for rs in lines.values() for r in rs if "solver" in r]
     out_lines.append({"phase": "cluster", "rows": len(rows), "equal_to_record": True,
                       "lockstep_reason_equal_to_record": True,
@@ -2417,13 +2568,21 @@ def phase_cluster(card: str) -> list:
 
 def _closed_loop_phases(card: str) -> tuple:
     """The tiered solver's two kernels at its shapes (the ``kernels``
-    phase's entries for them), then the cluster and analysis phases; run in
-    a process of their own, last (see ``in_spawned_process``)."""
+    phase's entries for them), then the cluster phase, with the analysis
+    phase beside it in a spawned process of its own; run in a process of
+    their own, last (see ``in_spawned_process``)."""
+    import concurrent.futures
+    import multiprocessing
+
     if str(SRC) not in sys.path:
         sys.path.insert(0, str(SRC))
     gen = torch.Generator(device="cuda").manual_seed(0)
     tiered = {"port_chain": _port_chain_at(gen), "numpy_sum": _numpy_sum_at(gen)}
-    return tiered, phase_cluster(card), phase_analysis(card)
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        analysis = pool.submit(phase_analysis, card)
+        cluster = phase_cluster(card)
+        return tiered, cluster, analysis.result()
 
 
 def phase_analysis(card: str) -> dict:
@@ -2432,6 +2591,8 @@ def phase_analysis(card: str) -> dict:
     over every scenario x fabric, the timeline path, the loop-space verifier
     at 1,024 devices and the layout prover up to 4,096.  Its four summary
     lines must each end in "ok"."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
     from repro_torch.analysis.__main__ import main as gate
 
     t0 = time.perf_counter()
@@ -2540,8 +2701,8 @@ def _grouped_gemm_keys(block, reps: int = 5, attempts: int = PROFILE_ATTEMPTS) -
     for attempt in range(attempts):
         time.sleep(PROFILE_PAUSE_S * attempt)
         torch.cuda.synchronize()
-        averages, _ = _profiled(calls, calls)
-        found, _ = _device_ms_per_launch(averages, ())
+        profiled, _ = _profiled(calls, calls)
+        found, _ = _device_ms_per_launch(profiled, ())
         if found:
             return {key for key, _, _ in found}
     raise AssertionError(f"in {attempts} profiles the profiler saw no device kernel of "
@@ -2589,8 +2750,8 @@ def phase_profile(model, end: int = PROMPT_LEN + NEW_TOKENS, steps: int = 32) ->
     expect = {k: n * steps for k, n in decode_launches(cfg).items() if n}
     for attempt in range(PROFILE_ATTEMPTS):
         time.sleep(PROFILE_PAUSE_S * attempt)
-        averages, wall_ms = _profiled(warm_step, run_steps)
-        rows, per_kernel = _device_ms_per_launch(averages, SERVE_KERNELS)
+        profiled, wall_ms = _profiled(warm_step, run_steps)
+        rows, per_kernel = _device_ms_per_launch(profiled, SERVE_KERNELS)
         seen = {k: (per_kernel[k] or {}).get("launches") for k in expect}
         if seen == expect:
             break
@@ -2752,11 +2913,11 @@ def _train_profile(trainer, batch, expect: dict) -> tuple:
     profiles made)."""
     for attempt in range(PROFILE_ATTEMPTS):
         time.sleep(PROFILE_PAUSE_S * attempt)
-        averages, (trainer.opt_state, metrics) = _profiled(
+        profiled, (trainer.opt_state, metrics) = _profiled(
             lambda: trainer.step_fn(trainer.opt_state, batch["tokens"], batch["labels"]),
             lambda: trainer.step_fn(trainer.opt_state, batch["tokens"], batch["labels"]),
             host_ops=False)
-        rows, _ = _device_ms_per_launch(averages, ())
+        rows, _ = _device_ms_per_launch(profiled, ())
         seen = {"rmsnorm": sum(n for key, _, n in rows if "::rmsnorm_kernel<" in key),
                 "rmsnorm_bwd": sum(n for key, _, n in rows if "::rmsnorm_bwd_kernel<" in key)}
         if seen == expect:

@@ -66,8 +66,9 @@ reassociation); a division by the clock divides by a float64 tensor on the
 device (PyTorch multiplies by the reciprocal when the divisor is a host
 scalar on the card); ``torch.round`` is ``np.rint`` (half to even); and every
 sum numpy adds left to right (a port's busy chain, a stage's queued time)
-goes through :func:`repro_torch.kernels.ordered_scan.ordered_scan`, whose
-kernel adds each column in order on the card.
+goes through :func:`repro_torch.kernels.ordered_scan.ordered_scan` (or
+``ordered_total`` where only the sum is kept), whose kernel adds each column
+in order on the card.
 """
 
 from __future__ import annotations
@@ -78,7 +79,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..kernels.ordered_scan import ordered_scan
+from ..kernels.ordered_scan import ordered_scan, ordered_total
 from .engine import EngineResult
 from .scenario import (
     Affine,
@@ -662,11 +663,10 @@ class _OrderedTotal:
     def flush(self) -> torch.Tensor:
         if not self._terms:
             return self.total
-        sums = (ordered_scan(torch.stack(self._cols, dim=1))[-1]
-                if self._cols else None)
+        sums = ordered_total(torch.stack(self._cols, dim=1)) if self._cols else None
         seq = [self.total] + [sums[t:t + 1] if isinstance(t, int) else t
                               for t in self._terms]
-        self.total = ordered_scan(torch.cat(seq)[:, None])[-1]
+        self.total = ordered_total(torch.cat(seq)[:, None])
         self._cols, self._terms = [], []
         return self.total
 
@@ -925,7 +925,7 @@ class LockstepEngine:
                                     q = bs[:-1] - iss
                                     pcnt[row] += cnt
                                     pbyt[row] += cnt * nb
-                                    qs = ordered_scan(q)[-1]
+                                    qs = ordered_total(q)
                                     pqd[row] += qs
                                     qsums.append(qs)
                                     wake = arrm + xgmi_lat

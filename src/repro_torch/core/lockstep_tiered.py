@@ -54,7 +54,7 @@ numpy's, operation for operation:
 * every ``float(q.sum())`` is numpy's pairwise sum,
   :func:`repro_torch.kernels.numpy_sum.numpy_sum`;
 * the queued totals take their terms in order through
-  :func:`repro_torch.kernels.ordered_scan.ordered_scan`;
+  :func:`repro_torch.kernels.ordered_scan.ordered_total`;
 * a division divides by a float64 tensor (the clock) or is numpy's own
   (``nb / bw`` per port, once per message size), ``torch.round`` is
   ``np.rint``, and sorts are stable.
@@ -70,7 +70,7 @@ import numpy as np
 import torch
 
 from ..kernels.numpy_sum import numpy_sum
-from ..kernels.ordered_scan import ordered_scan
+from ..kernels.ordered_scan import ordered_total
 from ..kernels.port_chain import port_chain
 from .engine import EngineResult
 from .scenario import (
@@ -1220,12 +1220,12 @@ class _QueuedTotals:
             sums = numpy_sum(torch.cat(self._vecs), torch.as_tensor(offs, device=self.g.device))
         terms = torch.cat([sums[t:t + 1] if isinstance(t, int) else t for t in self._g])
         terms = terms[terms != 0]
-        self.g = ordered_scan(torch.cat((self.g, terms))[:, None])[-1]
+        self.g = ordered_total(torch.cat((self.g, terms))[:, None])
         v, k = torch.cat(self._cv), torch.cat([c.long() for c in self._ck])
         keep = v != 0
         v, k = v[keep], k[keep]
         onehot = torch.where(k[:, None] == self._cls_ids, v[:, None], 0.0)
-        self.cls = ordered_scan(torch.cat((self.cls[None], onehot)))[-1]
+        self.cls = ordered_total(torch.cat((self.cls[None], onehot)))
         self._vecs, self._g, self._cv, self._ck = [], [], [], []
         self._pending = 0
 

@@ -745,23 +745,76 @@ def test_vector_engine_on_the_card_equals_the_host_engines(cuda):
                 assert card.nonflag_reads == 65_792 and type(card.flag_reads) is int
 
 
-def test_ordered_scan_kernel_adds_in_order(cuda):
-    """One thread a column, left to right: equal to np.add.accumulate on
-    columns where any other order gives another result."""
-    from repro_torch.kernels.ordered_scan import ordered_scan_cuda, ordered_scan_ref
+# (L, R, x 8 bytes past a 16-byte boundary, the launch plan): every plan,
+# odd R, L past a tile's depth (wide 256 rows, narrow 4,096 / R rounded down
+# to even), the tiny plan's edge (16 rows) and L = 1
+ORDERED_SCAN_CASES = {
+    "wide_bulk": (2049, 4096, False, ("wide", 16)),
+    "wide_bulk_tall": (4096, 256, False, ("wide", 16)),
+    "wide_bulk_strip_edge": (300, 18, False, ("wide", 16)),
+    "wide_8_odd": (257, 4097, False, ("wide", 8)),
+    "wide_8_unaligned": (300, 256, True, ("wide", 8)),
+    "wide_8_strip_edge": (129, 17, False, ("wide", 8)),
+    "narrow_16_odd": (1000, 5, False, ("narrow", 16)),
+    "narrow_8_unaligned": (3000, 3, True, ("narrow", 8)),
+    "narrow_widest": (4097, 15, False, ("narrow", 16)),
+    "narrow_tall": (100_000, 1, False, ("narrow", 16)),
+    "narrow_17_rows": (17, 2, False, ("narrow", 16)),
+    "tiny_16_rows_odd": (16, 5, True, ("tiny", 8)),
+    "tiny_one_row": (1, 1, False, ("tiny", 8)),
+    "tiny_one_row_wide": (1, 4097, False, ("tiny", 8)),
+}
 
-    rng = np.random.default_rng(0)
-    for rows, cols in ((1, 1), (3, 1000), (2049, 4096), (4096, 1), (257, 5)):
-        x = rng.standard_normal((rows, cols))
-        x[0::4] += 1e16
-        x[1::4] = 1.0
-        x[2::4] -= 1e16
-        before = ordered_scan_cuda.launches
-        got = ordered_scan_cuda(torch.from_numpy(x).to(cuda))
-        assert ordered_scan_cuda.launches == before + 1
+
+@pytest.mark.parametrize("case", sorted(ORDERED_SCAN_CASES))
+@pytest.mark.parametrize("entry", ["ordered_scan", "ordered_total"])
+def test_ordered_scan_kernel_adds_in_order(cuda, entry, case):
+    """Each column added in order: bit for bit np.add.accumulate (the whole
+    scan, or its last row) on columns where any other order gives another
+    result, and the plain version on the card, with -0.0, inf and NaN in
+    some columns (a NaN compared as NaN); one launch a call.  The control, a
+    pairwise order (numpy's sum of each column), is rejected wherever
+    L >= 64."""
+    from repro_torch.kernels import ordered_scan as mod
+
+    L, R, unaligned, plan = ORDERED_SCAN_CASES[case]
+    rng = np.random.default_rng(sorted(ORDERED_SCAN_CASES).index(case))
+    x = rng.standard_normal((L, R))
+    x[0::4] += 1e16
+    x[1::4] = 1.0
+    x[2::4] -= 1e16
+    special = rng.random(x.shape) < 0.001
+    x[special] = rng.choice([-0.0, np.inf, -np.inf, np.nan], int(special.sum()))
+    x[:, 0] = -0.0  # a column of -0.0 sums to -0.0 only if row 0 is copied
+    with np.errstate(invalid="ignore"):
         want = np.add.accumulate(x, axis=0)
-        np.testing.assert_array_equal(got.cpu().numpy(), want)
-        np.testing.assert_array_equal(ordered_scan_ref(torch.from_numpy(x)).numpy(), want)
+    flat = torch.from_numpy(np.concatenate(([0.0], x.ravel()))).to(cuda)
+    xd = (flat[1:] if unaligned else flat[1:].clone()).view(L, R)
+    assert mod.ordered_scan_plan(L, R, xd.data_ptr() % 16 == 0) == plan
+    kernel = getattr(mod, f"{entry}_cuda")
+    before = mod.ordered_scan_cuda.launches, mod.ordered_scan_cuda.by_shape[entry, L, R]
+    got = kernel(xd)
+    torch.cuda.synchronize()
+    assert (mod.ordered_scan_cuda.launches, mod.ordered_scan_cuda.by_shape[entry, L, R]) == \
+        (before[0] + 1, before[1] + 1)
+    if entry == "ordered_total":
+        want = want[-1]
+    assert got.shape == want.shape
+    finite = ~np.isnan(want)
+    assert _same_bits(got.cpu()[torch.from_numpy(finite)], torch.from_numpy(want[finite]))
+    assert np.isnan(got.cpu().numpy()[~finite]).all()
+    if L <= 4096:  # the plain version launches a kernel a row
+        # a NaN's payload is the add's choice (torch's add on the card may
+        # pick the other operand's): equal bits elsewhere, NaN where it is
+        plain = getattr(mod, f"{entry}_ref")(xd)
+        nan = torch.isnan(plain)
+        assert torch.equal(torch.isnan(got), nan) and _same_bits(got[~nan], plain[~nan])
+    if L >= 64:
+        with np.errstate(invalid="ignore"):
+            pairwise = np.ascontiguousarray(x.T).sum(axis=1)
+        keep = ~np.isnan(pairwise) & ~np.isnan(want[-1] if want.ndim == 2 else want)
+        last = (want[-1] if want.ndim == 2 else want)[keep]
+        assert not np.array_equal(pairwise[keep].view(np.int64), last.view(np.int64))
 
 
 @pytest.mark.parametrize("name", ["ring_allreduce", "all_to_all"])

@@ -26,7 +26,13 @@ import torch
 
 import repro.core as R
 import repro_torch.core as P
-from repro_torch.kernels.ordered_scan import ordered_scan, ordered_scan_ref
+from repro_torch.kernels.ordered_scan import (
+    ordered_scan,
+    ordered_scan_plan,
+    ordered_scan_ref,
+    ordered_total,
+    ordered_total_ref,
+)
 
 RANKS = (2, 3, 4, 5, 8, 16, 33, 64)
 SOLVED = ("ring_allreduce", "all_to_all")
@@ -141,6 +147,55 @@ def test_ordered_scan_refuses_what_it_does_not_take():
                 torch.zeros((2, 2), dtype=torch.float32)):
         with pytest.raises(ValueError, match="float64"):
             ordered_scan(bad)
+
+
+def _bits(a) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.float64).view(np.int64)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (7, 3), (64, 5), (1000, 2), (4096, 1)])
+def test_ordered_total_equals_the_last_row_of_add_accumulate(shape):
+    rng = np.random.default_rng(shape[0] * 31 + shape[1])
+    x = _adversarial(rng, *shape)
+    want = np.add.accumulate(x, axis=0)[-1]
+    for total in (ordered_total, ordered_total_ref):
+        got = total(torch.from_numpy(x))
+        assert got.dtype == torch.float64 and got.shape == (shape[1],)
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+def test_ordered_total_keeps_signed_zeros_and_non_finite_values():
+    """Row 0 is copied, not added to +0.0: a column of -0.0 totals -0.0."""
+    nan, inf = float("nan"), float("inf")
+    x = np.array([[-0.0, -0.0, inf, nan, 1.0, -0.0],
+                  [-0.0, 0.0, -inf, 1.0, inf, 1e308],
+                  [-0.0, -0.0, 1.0, 2.0, 1.0, 1e308]])
+    with np.errstate(invalid="ignore", over="ignore"):  # inf + -inf, 1e308 + 1e308
+        want = np.add.accumulate(x, axis=0)
+    for scan in (ordered_scan, ordered_scan_ref):
+        np.testing.assert_array_equal(_bits(scan(torch.from_numpy(x)).numpy()), _bits(want))
+    for total in (ordered_total, ordered_total_ref):
+        np.testing.assert_array_equal(_bits(total(torch.from_numpy(x)).numpy()),
+                                      _bits(want[-1]))
+
+
+def test_ordered_total_refuses_what_ordered_scan_refuses():
+    for bad in (torch.zeros(3), torch.zeros((0, 2), dtype=torch.float64),
+                torch.zeros((2, 0), dtype=torch.float64),
+                torch.zeros((2, 2), dtype=torch.float32)):
+        for entry in (ordered_scan, ordered_total, ordered_total_ref):
+            with pytest.raises(ValueError, match="float64"):
+                entry(bad)
+
+
+@pytest.mark.parametrize("L, R, aligned, plan", [
+    (1, 1, True, ("tiny", 8)), (16, 4096, True, ("tiny", 8)), (17, 1, True, ("narrow", 16)),
+    (1000, 5, True, ("narrow", 16)), (3000, 15, False, ("narrow", 8)),
+    (17, 16, True, ("wide", 16)), (2049, 4096, True, ("wide", 16)),
+    (257, 4097, True, ("wide", 8)), (300, 256, False, ("wide", 8)),
+])
+def test_ordered_scan_plan(L, R, aligned, plan):
+    assert ordered_scan_plan(L, R, aligned) == plan
 
 
 @pytest.mark.parametrize("fabric", ("two_tier", "fat_tree", "rail_optimized"))

@@ -1,11 +1,21 @@
 #!/usr/bin/env python3
-"""The tiered solver's two kernels at the solver's launch shapes: a hash of
+"""The lockstep solvers' three kernels at their launch shapes: a hash of
 their output bits, so that two trees' kernels can be held to the same bits,
 and their device time; ``--latency`` for the SM cycles of the port chain's
-dependent steps.
+dependent steps; ``--census`` for the ordered scan's launches in the
+cluster phase.
 
-The shapes are the launches the solver gives at 4,096 devices on fat_tree
-(16 a node): all_to_all's dependency levels of 256 ports x 65,280 touches,
+The ordered scan (both entries, ``ordered_scan`` and ``ordered_total``) runs
+at ``chip_smoke.ORDERED_SCAN_PATHS``, the cluster phase's path shapes: one
+line a shape with the output's SHA-1, device ms of the kernel alone
+(torch.profiler) and by CUDA events queued behind ``torch.cuda._sleep``
+(``chip_smoke.queued_ms``).  ``--census`` runs the phase's engaged rows on
+the card in a process of its own, counts every ordered-scan call by call
+site, entry and shape, then times each shape that way on fresh data: one
+line a site and shape, and the phase's total device time.
+
+The port chain's and numpy sum's shapes are the launches the tiered solver
+gives at 4,096 devices on fat_tree (16 a node): all_to_all's dependency levels of 256 ports x 65,280 touches,
 130 x 130,048 (the widest), 512 x 32,648 and 7,682 ports of 1-4,088 touches,
 and for ``numpy_sum`` also one 65,280-element chunk and 8,194 segments of
 1-8,193 elements and 65,280 (a flush's many short vectors).  One JSON line a
@@ -22,12 +32,13 @@ and select, fmax, the kernel's step (compare, select, and the queued add
 beside it), the step with fmax, the step with the add after the select, and
 (for the issue rate) eight independent adds; each over 8 x 4,096 steps.
 Needs a CUDA device; run from the repository root:
-    python3 tools/tiered_kernels.py [--src build/parent/src] [--latency]
+    python3 tools/tiered_kernels.py [--src build/parent/src] [--latency | --census]
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import hashlib
 import json
@@ -111,6 +122,100 @@ def sum_lines(gen: torch.Generator, src: str) -> list:
                       "elements": x.numel(), "device_ms": cs.launch_ms(call, iters=20),
                       "device_ms_by": "CUDA events around each launch",
                       "bits_sha1": _digest(call()), "src": src})
+    return lines
+
+
+def scan_lines(gen: torch.Generator, src: str) -> list:
+    """The ordered scan at the cluster phase's path shapes
+    (``chip_smoke.ORDERED_SCAN_PATHS``): a hash of each entry's output bits,
+    device ms of the kernel alone (torch.profiler; cold over 3 copies of x
+    where the solver reads x cold) and by events queued behind
+    ``torch.cuda._sleep``.  A tree without ``ordered_total`` (the parent's)
+    takes the scan's last row in its place: the same bits, the whole scan's
+    time."""
+    import itertools
+
+    import chip_smoke as cs
+    from repro_torch.kernels import ordered_scan as mod
+
+    lines = []
+    for entry, L, R, cold in cs.ORDERED_SCAN_PATHS:
+        x = cs._ordered_scan_x(gen, L, R)
+        fn = getattr(mod, f"{entry}_cuda", None)
+        if fn is None:
+            fn = lambda xx: mod.ordered_scan_cuda(xx)[-1]  # noqa: E731
+        copies = [x, x.clone(), x.clone()] if cold else [x]
+        turn = itertools.cycle(copies)
+        prof = cs._profile_calls({"ordered_scan": fn}, copies)
+        lines.append({"kernel": "ordered_scan", "entry": entry, "shape": [L, R],
+                      "read": "cold" if cold else "warm", "device_ms": prof["ordered_scan"],
+                      "device_ms_by": "torch.profiler, kernel alone",
+                      "queued_ms": cs.queued_ms(lambda: fn(next(turn)), iters=5),
+                      "bits_sha1": _digest(fn(x)), "src": src})
+        del x, copies
+    return lines
+
+
+def _census_job(src: str) -> list:
+    """The cluster phase's engaged rows on the card (chip_smoke's rows and
+    warm-up), each ordered-scan call counted by call site, entry and shape:
+    ``[[site, entry, L, R, calls], ...]`` and the rows' wall."""
+    import time
+
+    sys.path.insert(0, str(Path(src).resolve()))
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.core import lockstep, lockstep_tiered
+
+    calls = collections.Counter()
+
+    def recording(fn, entry):
+        def call(x):
+            f = sys._getframe(1)
+            calls[f"{Path(f.f_code.co_filename).name}:{f.f_lineno}", entry, *x.shape] += 1
+            return fn(x)
+        return call
+
+    for mod in (lockstep, lockstep_tiered):
+        for entry in ("ordered_scan", "ordered_total"):
+            if hasattr(mod, entry):
+                setattr(mod, entry, recording(getattr(mod, entry), entry))
+    rows = cs._cluster_rows()
+    cs._cluster_run(rows[0], "cuda")  # the cluster phase's warm-up, outside the count
+    cs._cluster_run(next(r for r in rows if r["devices_per_node"] is not None
+                         and r["lockstep_reason"] == "engaged"), "cuda")
+    calls.clear()
+    t0 = time.perf_counter()
+    for row in rows:
+        if row["lockstep_reason"] == "engaged":
+            cs._cluster_run(row, "cuda")
+    return [[*key, n] for key, n in sorted(calls.items())], time.perf_counter() - t0
+
+
+def census_lines(gen: torch.Generator, src: str) -> list:
+    """The ordered scan's launches in the cluster phase's card rows, by call
+    site, entry and shape (counted in a process of its own), and each
+    shape's device time (``chip_smoke.queued_ms``) on fresh data: one line a site and
+    shape, then the phase's total."""
+    import chip_smoke as cs
+    from repro_torch.kernels import ordered_scan as mod
+
+    sites, wall = cs.in_spawned_process(_census_job, src)
+    lines, ms_of = [], {}
+    for site, entry, L, R, n in sites:
+        if (entry, L, R) not in ms_of:
+            x = torch.randn(L, R, generator=gen, device="cuda", dtype=torch.float64)
+            fn = getattr(mod, f"{entry}_cuda")
+            ms_of[entry, L, R] = cs.queued_ms(lambda: fn(x))
+            del x
+        lines.append({"kernel": "ordered_scan", "census": site, "entry": entry, "shape": [L, R],
+                      "launches": n, "device_ms": ms_of[entry, L, R], "src": src})
+    lines.append({"kernel": "ordered_scan", "census": "cluster phase, engaged rows",
+                  "launches": sum(s[-1] for s in sites), "shapes": len(ms_of),
+                  "device_ms": sum(s[-1] * ms_of[tuple(s[1:4])] for s in sites),
+                  "device_ms_by": "CUDA events around each launch behind torch.cuda._sleep, "
+                                  "median of 3",
+                  "rows_wall_s": wall, "src": src})
     return lines
 
 
@@ -233,6 +338,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--latency", action="store_true")
+    ap.add_argument("--census", action="store_true",
+                    help="the cluster phase's ordered-scan launches and their device time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
@@ -242,7 +349,14 @@ def main() -> None:
 
     card = cs.card_line()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for line in chain_lines(gen, args.src) + sum_lines(gen, args.src):
+    scan_gen = torch.Generator(device="cuda").manual_seed(1)
+    if args.census:
+        for line in census_lines(scan_gen, args.src):
+            print(json.dumps({**line, "card": card}), flush=True)
+        return
+    # the ordered scan's profiles first, in a process that has run nothing else
+    lines = scan_lines(scan_gen, args.src) + chain_lines(gen, args.src) + sum_lines(gen, args.src)
+    for line in lines:
         print(json.dumps({**line, "card": card}), flush=True)
     if args.latency:
         print(json.dumps({**latency_line(args.src), "card": card}), flush=True)
