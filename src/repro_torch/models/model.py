@@ -66,6 +66,7 @@ import torch.nn.functional as F
 import torch.distributed
 from torch import nn
 
+from .. import tracing
 from ..device import resolve_device
 from ..distributed.collectives import copy_in, raw_all_gather, raw_all_reduce, reduce_out
 from ..distributed.remat import POLICIES, maybe_remat
@@ -560,6 +561,7 @@ class Model(nn.Module):
             self.shared = DenseBlock(cfg, self.device)
         own = iter(self.blocks)
         self.entries = [self.shared if shared else next(own) for _, shared in plan]
+        self.entry_shared = [shared for _, shared in plan]
         if not cfg.tie_embeddings:
             self.lm_head = _param(specs["lm_head"], self.device)
 
@@ -902,11 +904,14 @@ class Model(nn.Module):
                              "K/V columns they carry: take them from its init_caches, "
                              "abstract_caches or prefill")
         tokens = None if tokens is None else torch.as_tensor(tokens, device=self.device)[:, None]
-        x = self._embed(tokens, embeds)
-        for i, (block, cache) in enumerate(zip(self.entries, caches)):
-            x, _ = block.decode(x, cache, pos, None if specs is None else specs[i],
-                                None if kv is None else kv[i])
-        logits = self._head(x)[:, 0, :]
-        if self._vocab_slice() is not None:
-            logits = raw_all_gather(logits, self.mesh, "model", dim=-1)
+        with tracing.span("model.embed"):
+            x = self._embed(tokens, embeds)
+        for i, (block, cache, shared) in enumerate(zip(self.entries, caches, self.entry_shared)):
+            with tracing.span("model.block", index=i, kind=block.kind, shared=shared):
+                x, _ = block.decode(x, cache, pos, None if specs is None else specs[i],
+                                    None if kv is None else kv[i])
+        with tracing.span("model.head"):
+            logits = self._head(x)[:, 0, :]
+            if self._vocab_slice() is not None:
+                logits = raw_all_gather(logits, self.mesh, "model", dim=-1)
         return logits, caches

@@ -49,6 +49,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..distributed.collectives import copy_in, gather, raw_all_gather, reduce_out
 from .common import ModelConfig, ParamSpec
 
@@ -244,8 +245,9 @@ def _decode(cfg: ModelConfig, p, proj: torch.Tensor, state: Dict[str, torch.Tens
     x, Bm, Cm = torch.split(conv_out, [d_inner, ds, ds], dim=-1)
     dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"])
     a = torch.exp(p["a_log"].float())
-    h, y = _ssm_step(state["h"], x.reshape(B, n_heads, d_head).float(), Bm.float(), Cm.float(),
-                     dt, a, p["d_skip"].float())
+    with tracing.span("mamba.update"):
+        h, y = _ssm_step(state["h"], x.reshape(B, n_heads, d_head).float(), Bm.float(),
+                         Cm.float(), dt, a, p["d_skip"].float())
     y = y.reshape(B, 1, d_inner).to(proj.dtype)
     state["h"], state["conv"] = h, win[:, 1:]
     return (y * F.silu(z + p["norm_z"])) @ p["w_out"], state

@@ -233,7 +233,9 @@ def test_moe_engine_serves_greedy_tokens_and_stats_as_the_reference():
     eng = ServeEngine(model, ServeConfig(max_batch=2))
     jouts, outs = jeng.generate(prompts, 6), eng.generate(prompts, 6)
     assert outs == [[int(t) for t in o] for o in jouts]
-    assert eng.stats == jeng.stats
+    # the port also counts its reads of the device: one a decode step, one a batch of 2
+    syncs = jeng.stats["decode_steps"] + jeng.stats["requests"] // 2
+    assert eng.stats == {**jeng.stats, "host_syncs": syncs}
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "kimi-k2-1t-mla", "qwen2-vl-7b", "zamba2-2.7b",
@@ -241,6 +243,7 @@ def test_moe_engine_serves_greedy_tokens_and_stats_as_the_reference():
 def test_cli_serves_any_ported_arch_reduced_on_cpu(arch, capsys):
     res = serve_cli.main(["--arch", arch, "--reduced", "--device", "cpu", "--requests", "2",
                           "--prompt-len", "5", "--new-tokens", "3", "--max-batch", "2"])
-    assert res["stats"] == {"prefill_tokens": 10, "decode_steps": 3, "requests": 2}
+    assert res["stats"] == {"prefill_tokens": 10, "decode_steps": 3, "requests": 2,
+                            "host_syncs": 4}
     assert [len(o) for o in res["outputs"]] == [8, 8]
     assert "tok/s on cpu" in capsys.readouterr().out
