@@ -6,9 +6,9 @@ Run from the repository root on a machine with a CUDA device (an H100):
 
 Phases, each printing one JSON line:
   device   the card's name and power limit (nvidia-smi) and torch's view of it;
-  build    nvcc builds the four kernels, the solvers' ordered scan, port
-           chain and numpy sum, and the empty launch-floor kernel (ptxas
-           register / shared-memory lines);
+  build    nvcc builds the four kernels, the Mamba2 decode, the solvers'
+           ordered scan, port chain and numpy sum, and the empty launch-floor
+           kernel (ptxas register / shared-memory lines);
   kernels  each kernel against its plain version at its path's shapes (and
            gemv / gemv_tiles at the reference's sweeps, in both layouts of A),
            timed with CUDA events beside the plain version and a library call;
@@ -36,7 +36,12 @@ Phases, each printing one JSON line:
            ports at 4,096 devices) and numpy's sum at every length 1-8,193
            and at 65,280, bit for bit against their plain versions, each
            rejecting a faulty control (a pairwise queued sum; a left-to-right
-           sum);
+           sum); mamba_decode (the Mamba2 decode between its projections)
+           at zamba2-2.7b's serve shape (B 4, 80 heads of 64, d_state 64,
+           a window of 5,248 channels) and at one rank's 20 heads, 8 steps
+           carrying the state against its plain version, rejecting two faulty
+           controls (the conv taps reversed; D x left out), timed beside the
+           plain version at B 4 and at the benchmark's B 512;
   gemv_allreduce  the fused GEMV+AllReduce and the unfused psum_matmul on 4
            ranks (4 processes sharing the card, a gloo group exchanging
            through host memory) at the paper's Table-1 shape and at
@@ -242,6 +247,7 @@ import gc
 import io
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -286,10 +292,14 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel's pallas_call site)
                    "src/repro/core/lockstep_tiered.py:1390"),
     "numpy_sum": ("src/repro_torch/kernels/csrc/numpy_sum.cu",
                   "src/repro/core/lockstep_tiered.py:1400"),
+    # the port's own kernel: the reference's Mamba2 decode is plain jnp
+    "mamba_decode": ("src/repro_torch/kernels/csrc/mamba_decode.cu",
+                     "src/repro/models/ssm.py:140"),
 }
 SOLVER_KERNELS = ("ordered_scan", "port_chain", "numpy_sum")  # the cluster phase's
-SERVE_KERNELS = ("rmsnorm", "decode_attention")  # the serve paths'; gemv's run in
-# the kernels and gemv_allreduce phases
+SERVE_KERNELS = ("rmsnorm", "decode_attention", "mamba_decode")  # the serve paths'; gemv's
+# run in the kernels and gemv_allreduce phases
+MAMBA_ARCH = "zamba2-2.7b"  # the serve path that runs mamba_decode
 # the serve paths: slice 1's gemma3-1b, and this slice's main path, olmoe-1b-7b
 # (src/repro/configs/olmoe_1b_7b.py, arXiv:2409.02060), both at full width
 MAIN_ARCH = "olmoe-1b-7b"
@@ -308,11 +318,12 @@ PARITY_ARCHS = ("gemma3-1b", "gemma3-27b", "starcoder2-7b", "qwen2-vl-7b", "mini
 # path, then this slice's two recurrent configs
 SERVE_ARCHS = ("gemma3-1b", MAIN_ARCH, "zamba2-2.7b", "xlstm-125m")
 # kernel launches a decode step on each serve path: zamba2's 54 Mamba ln1,
-# 9 x 2 in the shared block and the final norm; xlstm's 12 ln1 and the final
+# 9 x 2 in the shared block and the final norm, and one mamba_decode a Mamba2
+# layer; xlstm's 12 ln1 and the final
 SERVE_LAUNCHES_PER_STEP = {
     "gemma3-1b": {"rmsnorm": 53, "decode_attention": 26},
     MAIN_ARCH: {"rmsnorm": 33, "decode_attention": 16},
-    "zamba2-2.7b": {"rmsnorm": 73, "decode_attention": 9},
+    "zamba2-2.7b": {"rmsnorm": 73, "decode_attention": 9, "mamba_decode": 54},
     "xlstm-125m": {"rmsnorm": 13, "decode_attention": 0},
 }
 # rmsnorm timed beside F.rms_norm and the empty kernel at these widths too
@@ -1886,6 +1897,105 @@ def phase_build() -> dict:
     return {"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas}
 
 
+def _mamba_decode_operands(gen: torch.Generator, B: int, H: int, ds: int = 64, K: int = 4,
+                            dtype=torch.bfloat16) -> tuple:
+    """A Mamba2 block's decode operands on the card in Mamba2's ranges, 64
+    columns a head: ``(proj, conv, h, weights)``, ``weights`` the kernel's
+    conv_w, dt_bias, a_log, d_skip and norm_z."""
+    d_inner = H * 64
+    C = d_inner + 2 * ds
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    dt = torch.exp(torch.rand(H, generator=gen, device="cuda") * (math.log(0.1) - math.log(1e-3))
+                   + math.log(1e-3))
+    weights = ((randn(K, C, scale=0.5)).to(dtype), dt + torch.log(-torch.expm1(-dt)),
+               torch.log(1 + 15 * torch.rand(H, generator=gen, device="cuda")),
+               1 + randn(H, scale=0.1), randn(d_inner, scale=0.1).to(dtype))
+    return (randn(B, 1, 2 * d_inner + 2 * ds + H).to(dtype), randn(B, K - 1, C),
+            randn(B, H, 64, ds, scale=0.1), weights)
+
+
+MAMBA_CONTROLS = ("taps_reversed", "skip_dropped")  # must be rejected
+MAMBA_STEPS = 8  # decode steps a check carries its state over
+
+
+def _mamba_decode_check(gen: torch.Generator, B: int, H: int) -> dict:
+    """The kernel against its plain version for MAMBA_STEPS steps from one
+    state, each side carrying its own: y every step, h and the window after,
+    within BF16_TOL; and each MAMBA_CONTROLS fault (the plain version with
+    the conv taps reversed, or with D x left out) rejected at the first."""
+    from repro_torch.kernels.mamba_decode import mamba_decode_cuda, mamba_decode_ref
+
+    proj, conv, h, w = _mamba_decode_operands(gen, B, H)
+    mine, plain, worst, err = [conv.clone(), h.clone()], [conv.clone(), h.clone()], 0.0, 0.0
+    faults = {"taps_reversed": (w[0].flip(0), *w[1:]),
+              "skip_dropped": (*w[:3], torch.zeros_like(w[3]), w[4])}
+    for step in range(MAMBA_STEPS):
+        x = proj if step == 0 else torch.randn(proj.shape, generator=gen,
+                                               device="cuda").to(proj.dtype)
+        if step == 0:  # each fault on the first step's inputs, the plain state kept
+            faulty = {name: mamba_decode_ref(x, plain[0], plain[1].clone(), *fw)[0]
+                      for name, fw in faults.items()}
+        y, mine[0] = mamba_decode_cuda(x, mine[0], mine[1], *w)
+        y_plain, plain[0] = mamba_decode_ref(x, plain[0], plain[1], *w)
+        torch.testing.assert_close(y.float(), y_plain.float(), **BF16_TOL)
+        worst = max(worst, _worst_ratio(y, y_plain.float()))
+        err = max(err, (y.float() - y_plain.float()).abs().max().item())
+        if step == 0:
+            controls = {name: {"max_abs_err": (out.float() - y_plain.float()).abs().max().item(),
+                               "worst_ratio": _worst_ratio(out, y_plain.float())}
+                        for name, out in faulty.items()}
+    for got, want in zip(mine, plain):
+        torch.testing.assert_close(got, want, **BF16_TOL)
+    passed = [name for name in MAMBA_CONTROLS if controls[name]["worst_ratio"] <= 1.0]
+    if passed:
+        raise AssertionError(f"tolerance {BF16_TOL} lets faulty mamba_decode controls {passed} "
+                             "pass")
+    return {"B": B, "heads": H, "steps": MAMBA_STEPS, "max_abs_err": err, "worst_ratio": worst,
+            "state_worst_ratio": max(_worst_ratio(g, p_) for g, p_ in zip(mine, plain)),
+            "controls": controls}
+
+
+def _mamba_decode_at(gen: torch.Generator, B: int, H: int = 80, ds: int = 64,
+                     K: int = 4) -> dict:
+    """mamba_decode at B rows of H heads of 64 (bf16): timed by CUDA events
+    beside its plain version, and by device time per launch in a profile of
+    its own, against the bound of its bytes (the state and the window read
+    and written, the projection and weights read, y written) or operations."""
+    from repro_torch.kernels.mamba_decode import mamba_decode_cuda, mamba_decode_ref
+
+    proj, conv, h, w = _mamba_decode_operands(gen, B, H, ds, K)
+    d_inner, C = H * 64, H * 64 + 2 * ds
+    nbytes = (2 * 4 * B * d_inner * ds + 2 * 4 * B * (K - 1) * C
+              + 2 * B * (d_inner + C + H) + 2 * (K * C + d_inner) + 4 * 3 * H
+              + 2 * B * d_inner)
+    b_ms, b_by = bound_ms(nbytes, B * (2 * K * C + 5 * d_inner * ds), "float32")
+    device_ms = _profile_calls({"mamba_decode": lambda _: mamba_decode_cuda(proj, conv, h, *w)},
+                               [None])["mamba_decode"]
+    return {"shape": {"proj": list(proj.shape), "h": list(h.shape), "conv": list(conv.shape)},
+            "dtype": "bfloat16", "bytes": nbytes,
+            "ms": time_ms(lambda: mamba_decode_cuda(proj, conv, h, *w), iters=50, warmup=5),
+            "plain_ms": time_ms(lambda: mamba_decode_ref(proj, conv, h, *w), iters=20,
+                                warmup=2),
+            "library_ms": None, "library_device_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "device_ms": device_ms,
+            **_rates(nbytes, b_ms, device_ms)}
+
+
+def _mamba_decode_kernel(gen: torch.Generator) -> dict:
+    """The kernels phase's mamba_decode entry: at the serve path's B 4 (the
+    line's numbers), its checks at B 4 with zamba2-2.7b's 80 heads and one
+    rank's 20, and the benchmark's B 512."""
+    checks = [_mamba_decode_check(gen, REQUESTS, H) for H in (80, 20)]
+    at = _mamba_decode_at(gen, REQUESTS)
+    at512 = _mamba_decode_at(gen, 512)
+    torch.cuda.empty_cache()
+    return {**at, "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "checks": checks, "at_B512": at512}
+
+
 def phase_kernels() -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plan
@@ -1984,7 +2094,8 @@ def phase_kernels() -> dict:
             "decode_attention_variants": variants,
             "decode_attention_heads": _attention_sweep(gen, sms),
             "decode_attention_families": _family_heads(gen),
-            "ordered_scan": _ordered_scan_at(gen), **_gemv_kernel_checks(gen)}
+            "ordered_scan": _ordered_scan_at(gen), "mamba_decode": _mamba_decode_kernel(gen),
+            **_gemv_kernel_checks(gen)}
 
 
 def _allreduce_rank(rank: int, world: int, shapes: dict, reps: int) -> dict:
@@ -2608,6 +2719,13 @@ def phase_analysis(card: str) -> dict:
             "seconds": time.perf_counter() - t0, "card": card}
 
 
+def _mamba_launches(counted) -> dict:
+    """``{"mamba_decode": launches}`` of ``counted`` (``mamba_decode_cuda``)
+    where it launched, else nothing: only a Mamba2 model's
+    ``decode_launches`` names the kernel."""
+    return {"mamba_decode": counted.launches} if counted.launches else {}
+
+
 def phase_serve(card: str, arch: str) -> tuple:
     """``arch`` at full width (random bf16 weights from a seeded generator)
     through ServeEngine: REQUESTS x (PROMPT_LEN + NEW_TOKENS) tokens, greedy,
@@ -2615,6 +2733,7 @@ def phase_serve(card: str, arch: str) -> tuple:
     ``decode_launches`` a step."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.mamba_decode import mamba_decode_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
     from repro_torch.models import Model
     from repro_torch.models.model import decode_launches, init_caches
@@ -2641,13 +2760,14 @@ def phase_serve(card: str, arch: str) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     allocated_at_start = torch.cuda.memory_allocated()
-    rmsnorm_cuda.launches = decode_attention_cuda.launches = 0
+    rmsnorm_cuda.launches = decode_attention_cuda.launches = mamba_decode_cuda.launches = 0
     t0 = time.perf_counter()
     outs = eng.generate(prompts, NEW_TOKENS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"rmsnorm": rmsnorm_cuda.launches,
-                "decode_attention": decode_attention_cuda.launches}
+                "decode_attention": decode_attention_cuda.launches,
+                **_mamba_launches(mamba_decode_cuda)}
 
     steps = eng.stats["prefill_tokens"] // REQUESTS + eng.stats["decode_steps"]
     if steps != PROMPT_LEN + NEW_TOKENS:
@@ -2804,6 +2924,7 @@ def phase_families(card: str) -> dict:
     layout beside SDPA is timed in the kernels phase (_family_heads)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.mamba_decode import mamba_decode_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
     from repro_torch.models import Model
     from repro_torch.models.model import decode_launches
@@ -2830,14 +2951,15 @@ def phase_families(card: str) -> dict:
         ServeEngine(model, ServeConfig(max_batch=REQUESTS)).generate([p[:4] for p in prompts], 2)
         eng = ServeEngine(model, ServeConfig(max_batch=REQUESTS))
         torch.cuda.synchronize()
-        rmsnorm_cuda.launches = decode_attention_cuda.launches = 0
+        rmsnorm_cuda.launches = decode_attention_cuda.launches = mamba_decode_cuda.launches = 0
         t0 = time.perf_counter()
         outs = eng.generate(prompts, FAMILY_NEW)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         steps = FAMILY_PROMPT + FAMILY_NEW
         launches = {"rmsnorm": rmsnorm_cuda.launches,
-                    "decode_attention": decode_attention_cuda.launches}
+                    "decode_attention": decode_attention_cuda.launches,
+                    **_mamba_launches(mamba_decode_cuda)}
         expect = {k: n * steps for k, n in decode_launches(cfg).items()}
         if launches != expect:
             raise AssertionError(f"{arch}: kernel launches {launches} != {expect}")
@@ -3931,6 +4053,7 @@ def _sharded_serve_rank(rank: int, world: int, runs: tuple) -> list:
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                       decode_attention_partial_cuda)
+    from repro_torch.kernels.mamba_decode import mamba_decode_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
     from repro_torch.launch.dryrun import trace_cell
     from repro_torch.launch.mesh import Mesh
@@ -3962,7 +4085,7 @@ def _sharded_serve_rank(rank: int, world: int, runs: tuple) -> list:
         torch.cuda.synchronize()
         dist.barrier()
         torch.cuda.reset_peak_memory_stats()
-        rmsnorm_cuda.launches = decode_attention_cuda.launches = 0
+        rmsnorm_cuda.launches = decode_attention_cuda.launches = mamba_decode_cuda.launches = 0
         decode_attention_partial_cuda.launches = 0
         EXCHANGED.clear()
         calls, norms = set(), set()
@@ -3977,7 +4100,8 @@ def _sharded_serve_rank(rank: int, world: int, runs: tuple) -> list:
             ops.decode_attention_partial_cuda = decode_attention_partial_cuda
             restore_norms()
         launches = {"rmsnorm": rmsnorm_cuda.launches,
-                    "decode_attention": decode_attention_cuda.launches}
+                    "decode_attention": decode_attention_cuda.launches,
+                    **_mamba_launches(mamba_decode_cuda)}
         partial = decode_attention_partial_cuda.launches
         steps = res["steps"]
         # the decode steps' (a prefill's apart), read before the trace adds its own
@@ -4137,6 +4261,7 @@ def _anchored(arch: str, fn):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.mamba_decode import mamba_decode_ref
     from repro_torch.kernels.rmsnorm import rmsnorm_ref
     from repro_torch.models import Model
 
@@ -4148,7 +4273,8 @@ def _anchored(arch: str, fn):
         for p, q in zip(model.parameters(), single.parameters()):
             p.copy_(q)
     del single
-    with mock.patch.multiple(ops, rmsnorm=rmsnorm_ref, decode_attention=decode_attention_ref):
+    with mock.patch.multiple(ops, rmsnorm=rmsnorm_ref, decode_attention=decode_attention_ref,
+                             mamba_decode=mamba_decode_ref):
         out = fn(model)
     del model
     gc.collect()
@@ -4668,6 +4794,9 @@ def main() -> int:
         # phase); gemv's: launches over every rank of the gemv_allreduce phase,
         # device time per launch at the gemma3-27b shard (kernels phase).
         # `ms` is back-to-back calls by CUDA events, host dispatch included.
+        if name == "mamba_decode":  # the Mamba2 serve path's, zamba2-2.7b
+            return (serves[MAMBA_ARCH]["launches"][name],
+                    profiles[MAMBA_ARCH]["kernels"][name]["device_ms_per_launch"])
         if name in SERVE_KERNELS:
             return (serves[MAIN_ARCH]["launches"][name],
                     profiles[MAIN_ARCH]["kernels"][name]["device_ms_per_launch"])
@@ -4682,7 +4811,7 @@ def main() -> int:
             return {"launches_by_path": {"cluster, lockstep solvers":
                                          cluster["launches"][name]}}
         paths = {f"{a} serve": serves[a]["launches"][name] for a in serves
-                 if name in SERVE_KERNELS}
+                 if name in serves[a]["launches"]}
         paths.update({f"{a} train": trains[a]["launches"][name] for a in trains
                       if name in trains[a]["launches"]})
         if name in sharded["launches"]:

@@ -16,7 +16,10 @@ tensors (``Model.abstract``), and counts:
   ``rms_norm``; nor do ``repro_torch::decode_attention`` and its partial
   entry, which XLA's dot count does see (the reference's decode attends in
   einsums), so a decode cell's attention products are not in the port's
-  dot FLOPs;
+  dot FLOPs.  ``repro_torch::mamba_decode`` is given the products of the
+  plain decode it replaces, the conv window's taps and the state's read
+  (2 · B · (K · C + H · d_head · d_state)), so a decode cell's dot FLOPs are
+  the same on either path;
 - **bytes**: the operands plus the results of each aten op, the eager
   port's HBM traffic at one kernel an op, where the reference's is XLA's
   proxy.  A view, an allocation and an op whose results only alias its
@@ -52,9 +55,11 @@ from torch.utils.flop_counter import FlopCounterMode
 
 # importing the kernels' modules registers their operators
 from ..kernels import decode_attention as _attention  # noqa: F401
+from ..kernels import mamba_decode as _mamba  # noqa: F401
 from ..kernels import rmsnorm as _rmsnorm  # noqa: F401
 
-__all__ = ["StepCost", "count_cost", "output_bytes", "grouped_mm_flop", "tensor_bytes"]
+__all__ = ["StepCost", "count_cost", "output_bytes", "grouped_mm_flop", "mamba_decode_flop",
+           "tensor_bytes"]
 
 KERNEL_NAMESPACE = "repro_torch"
 KERNEL_OF = {"decode_attention_partial": "decode_attention"}  # operator -> its kernel
@@ -85,6 +90,16 @@ def grouped_mm_flop(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
 
 def _no_dot(*args, out_shape=None, **kwargs) -> int:
     return 0
+
+
+def mamba_decode_flop(proj_shape, conv_shape, h_shape, conv_w_shape, *args, out_shape=None,
+                      **kwargs) -> int:
+    """The products of the plain Mamba2 decode that ``repro_torch::mamba_decode``
+    replaces: the window's ``einsum("bkc,kc->bc")`` and the state's read
+    ``einsum("bhds,bs->bhd")``."""
+    B, H, dh, ds = h_shape
+    K, C = conv_w_shape
+    return 2 * B * (K * C + H * dh * ds)
 
 
 @dataclass
@@ -158,7 +173,8 @@ def count_cost(arguments: Iterable[torch.Tensor] = ()) -> Iterator[StepCost]:
               torch.ops.repro_torch.rmsnorm: _no_dot,
               torch.ops.repro_torch.rmsnorm_bwd: _no_dot,
               torch.ops.repro_torch.decode_attention: _no_dot,
-              torch.ops.repro_torch.decode_attention_partial: _no_dot}
+              torch.ops.repro_torch.decode_attention_partial: _no_dot,
+              torch.ops.repro_torch.mamba_decode: mamba_decode_flop}
     flops = FlopCounterMode(display=False, custom_mapping=custom)
     with flops, _CostMode(cost, live, calls):
         yield cost

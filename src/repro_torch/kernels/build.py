@@ -26,7 +26,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "DTYPE_CODE", "nvcc", "build", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("rmsnorm", "decode_attention", "gemv", "gemv_tiles", "empty", "ordered_scan",
-           "port_chain", "numpy_sum")
+           "port_chain", "numpy_sum", "mamba_decode")
 # <repo>/src/repro_torch/kernels/build.py -> <repo>/build/kernels (gitignored)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 CUDA_HOME = Path("/usr/local/cuda")

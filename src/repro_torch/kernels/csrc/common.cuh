@@ -94,6 +94,24 @@ __device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
+// The arrival of the thread that issues a bulk copy, with the bytes the
+// barrier's phase now waits for.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// One bulk copy (TMA, no tensor map) of `bytes` (a multiple of 16, both
+// addresses 16-byte aligned) from global to shared memory, completing its
+// bytes on bar.
+__device__ __forceinline__ void bulk_copy_g2s(void* smem, const void* gmem, unsigned bytes,
+                                              uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(smem)), "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // dtype codes of the C launch functions
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;

@@ -10,10 +10,11 @@ A ``meta`` tensor (the dry run's: shapes, no data) takes an explicit branch
 of its own to the kernels' shape functions, the operators
 ``repro_torch::rmsnorm`` / ``rmsnorm_bwd`` (:func:`~.rmsnorm.rmsnorm_op`),
 through the same :class:`~.rmsnorm.RMSNormFunction` where autograd records,
-and ``repro_torch::decode_attention`` / ``decode_attention_partial``
-(:func:`~.decode_attention.decode_attention_op`); they allocate the outputs'
-shapes, launch nothing, and the dry run's dispatch modes count each as one
-kernel call.  A CUDA tensor never takes it: the
+``repro_torch::decode_attention`` / ``decode_attention_partial``
+(:func:`~.decode_attention.decode_attention_op`) and
+``repro_torch::mamba_decode`` (:func:`~.mamba_decode.mamba_decode_op`); they
+allocate the outputs' shapes, launch nothing, and the dry run's dispatch
+modes count each as one kernel call.  A CUDA tensor never takes it: the
 operators' dispatch cost some 20 µs of host time a call and 4 ms a gemma3-1b
 decode step more than the wrappers, measured on an NVIDIA H100 80GB HBM3 at
 700 W (``tools/rmsnorm_dispatch_cost.py``; PERF.md), so they are shape
@@ -29,10 +30,12 @@ from .decode_attention import (decode_attention_cuda, decode_attention_op,
                                decode_attention_partial_ref, decode_attention_ref)
 from .gemv import gemv_cuda, gemv_ref
 from .gemv_tiles import gemv_tiles_cuda, gemv_tiles_ref
+from .mamba_decode import mamba_decode_cuda, mamba_decode_op, mamba_decode_ref
 from .rmsnorm import (RMSNormFunction, rmsnorm_bwd_cuda, rmsnorm_bwd_op, rmsnorm_cuda, rmsnorm_op,
                       rmsnorm_ref)
 
-__all__ = ["decode_attention", "decode_attention_partial", "gemv", "gemv_tiles", "rmsnorm"]
+__all__ = ["decode_attention", "decode_attention_partial", "gemv", "gemv_tiles", "mamba_decode",
+           "rmsnorm"]
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int):
@@ -66,6 +69,18 @@ def gemv_tiles(a: torch.Tensor, x: torch.Tensor, *, n_dev: int, my_dev: int, bm:
     if a.is_cuda:
         return gemv_tiles_cuda(a, x, n_dev=n_dev, my_dev=my_dev, bm=bm)
     return gemv_tiles_ref(a, x, n_dev, my_dev, bm)
+
+
+def mamba_decode(proj: torch.Tensor, conv: torch.Tensor, h: torch.Tensor, conv_w: torch.Tensor,
+                 dt_bias: torch.Tensor, a_log: torch.Tensor, d_skip: torch.Tensor,
+                 norm_z: torch.Tensor):
+    """One Mamba2 decode step between the projections: ``(y, conv)``, h
+    updated in place (:func:`~.mamba_decode.mamba_decode_cuda`)."""
+    if proj.is_cuda:
+        return mamba_decode_cuda(proj, conv, h, conv_w, dt_bias, a_log, d_skip, norm_z)
+    if proj.is_meta:
+        return mamba_decode_op(proj, conv, h, conv_w, dt_bias, a_log, d_skip, norm_z)
+    return mamba_decode_ref(proj, conv, h, conv_w, dt_bias, a_log, d_skip, norm_z)
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):

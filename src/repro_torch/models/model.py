@@ -190,17 +190,20 @@ def decode_launches(cfg: ModelConfig) -> Dict[str, int]:
     ``rmsnorm``: the final norm, two in an attention block (plus MLA's latent
     norm, and its query norm where the query is compressed), one in a Mamba
     or xLSTM block.  ``decode_attention``: one a GQA block; MLA attends in
-    plain torch.  zamba2-2.7b: 54 + 9 x 2 + 1 = 73 and 9; xlstm-125m: 13 and 0.
+    plain torch.  ``mamba_decode``: one a Mamba2 block, a key only where the
+    config has such blocks.  zamba2-2.7b: 54 + 9 x 2 + 1 = 73, 9 and 54;
+    xlstm-125m: 13 and 0.
     """
     mla = cfg.attn_kind == "mla"
-    rms, att = 1, 0
+    rms, att, mamba = 1, 0, 0
     for block, _ in layer_blocks(cfg):
         if block in ("dense", "moe"):
             rms += 2 + (1 + bool(cfg.mla_q_rank) if mla else 0)
             att += not mla
         else:
             rms += 1
-    return {"rmsnorm": rms, "decode_attention": att}
+            mamba += block == "mamba"
+    return {"rmsnorm": rms, "decode_attention": att, **({"mamba_decode": mamba} if mamba else {})}
 
 
 _STATES = {"mamba": init_ssm_state, "xlstm_m": init_mlstm_state,

@@ -10,9 +10,12 @@ x, B and C; the recurrence
 
 runs as a plain loop over time for the full forward and prefill (the
 reference's ``lax.scan``; it is no Pallas kernel there, so none here) and as
-one update for decode.  State per layer: ``h [B, heads, 64, d_state]`` and the
-conv window ``conv [B, K - 1, d_inner + 2 d_state]``, both float32 whatever
-the parameter dtype.
+one update for decode: one call for everything between the two projections
+(``kernels.ops.mamba_decode``: on the card a hand-written kernel, elsewhere
+its plain version), ``h`` updated in place.  State per layer:
+``h [B, heads, 64, d_state]`` and the conv window
+``conv [B, K - 1, d_inner + 2 d_state]``, both float32 whatever the
+parameter dtype.
 
 Rounding follows the reference's: the prefill conv sums its K taps in the
 activation dtype, one rounding per multiply and add (as XLA does on the CPU,
@@ -50,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import tracing
+from ..kernels import ops
 from ..distributed.collectives import copy_in, gather, raw_all_gather, reduce_out
 from .common import ModelConfig, ParamSpec
 
@@ -234,20 +238,9 @@ def mamba_decode(cfg: ModelConfig, p: Dict[str, torch.Tensor], u: torch.Tensor,
 
 def _decode(cfg: ModelConfig, p, proj: torch.Tensor, state: Dict[str, torch.Tensor]):
     """:func:`mamba_decode` from the token's projection ``[B, 1, z | xBC | dt]``
-    of the heads ``p`` holds."""
-    B = proj.shape[0]
-    d_inner, n_heads, d_head = _local_dims(p)
-    ds = cfg.ssm_state
-    z, xbc_t, dt_raw = _split_proj(cfg, p, proj)
-    # the streaming depthwise conv: window = [conv state, current], float32
-    win = torch.cat([state["conv"], xbc_t[:, :1].to(state["conv"].dtype)], dim=1)  # [B, K, C]
-    conv_out = F.silu(torch.einsum("bkc,kc->bc", win.float(), p["conv_w"].float())).to(proj.dtype)
-    x, Bm, Cm = torch.split(conv_out, [d_inner, ds, ds], dim=-1)
-    dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"])
-    a = torch.exp(p["a_log"].float())
+    of the heads ``p`` holds: one call takes it to the gated ``y``, ``h``
+    updated in place."""
     with tracing.span("mamba.update"):
-        h, y = _ssm_step(state["h"], x.reshape(B, n_heads, d_head).float(), Bm.float(),
-                         Cm.float(), dt, a, p["d_skip"].float())
-    y = y.reshape(B, 1, d_inner).to(proj.dtype)
-    state["h"], state["conv"] = h, win[:, 1:]
-    return (y * F.silu(z + p["norm_z"])) @ p["w_out"], state
+        y, state["conv"] = ops.mamba_decode(proj, state["conv"], state["h"], p["conv_w"],
+                                            p["dt_bias"], p["a_log"], p["d_skip"], p["norm_z"])
+    return y @ p["w_out"], state

@@ -27,9 +27,10 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_partial_ref, decode_attention_plan)
 from repro_torch.kernels.gemv import GemvPlan, gemv_cuda, gemv_plan
 from repro_torch.kernels.gemv_tiles import gemv_tiles_cuda, remote_first_order, tile_plan
+from repro_torch.kernels.mamba_decode import mamba_decode_cuda, mamba_decode_ref
 from repro_torch.kernels.rmsnorm import (RMSNormBwdPlan, rmsnorm_bwd_cuda, rmsnorm_bwd_ref,
                                          rmsnorm_bwd_workspace, rmsnorm_cuda)
-from repro_torch.models import Model, moe
+from repro_torch.models import Model, moe, ssm
 from repro_torch.models.model import decode_launches
 from repro_torch.serving import ServeConfig, ServeEngine
 
@@ -265,6 +266,98 @@ def test_decode_step_launches_each_kernel_per_layer(cuda):
     assert torch.isfinite(logits).all()
     assert (rmsnorm_cuda.launches - before[0], decode_attention_cuda.launches - before[1]
             ) == (20 * (2 * cfg.n_layers + 1), 20 * cfg.n_layers)
+
+
+def _mamba_decode_case(cuda, B, H, ds, dtype, seed, d_head=64, K=4):
+    """A Mamba2 block's decode parameters (Mamba2's ranges), a random state,
+    and ``w_out`` the identity, so that ``_decode``'s output is the gated y."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    d_inner = H * d_head
+    C = d_inner + 2 * ds
+    dt = torch.exp(torch.empty(H).uniform_(np.log(1e-3), np.log(1e-1), generator=g))
+    p = {"conv_w": (torch.randn(K, C, generator=g) * 0.5).to(cuda, dtype),
+         "norm_z": (torch.randn(d_inner, generator=g) * 0.1).to(cuda, dtype),
+         "a_log": torch.log(torch.empty(H).uniform_(1, 16, generator=g)).to(cuda),
+         "dt_bias": (dt + torch.log(-torch.expm1(-dt))).to(cuda),
+         "d_skip": (1 + 0.1 * torch.randn(H, generator=g)).to(cuda),
+         "w_out": torch.eye(d_inner, dtype=dtype, device=cuda)}
+    state = {"h": (torch.randn(B, H, d_head, ds, generator=g) * 0.1).to(cuda),
+             "conv": torch.randn(B, K - 1, C, generator=g).to(cuda)}
+    projs = [torch.randn(B, 1, 2 * d_inner + 2 * ds + H, generator=g).to(cuda, dtype)
+             for _ in range(20)]
+    return p, state, projs
+
+
+def _plain_decode(p, proj, state):
+    """``ssm._decode`` with the kernel's plain version in its place."""
+    y, state["conv"] = mamba_decode_ref(proj, state["conv"], state["h"], p["conv_w"],
+                                        p["dt_bias"], p["a_log"], p["d_skip"], p["norm_z"])
+    return y @ p["w_out"], state
+
+
+# zamba2-2.7b's widths (80 heads of 64, d_state 64) at B 4 and 64, one rank's
+# 20 heads of a 4-way cut, and the reduced config's 2 heads with d_state 16
+MAMBA_DECODE_SHAPES = [(4, 80, 64), (64, 80, 64), (4, 20, 64), (4, 2, 16)]
+
+
+@pytest.mark.parametrize("B,H,ds", MAMBA_DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_mamba_decode_kernel_matches_the_plain_decode(cuda, B, H, ds, dtype):
+    """20 steps of the kernel and of its plain version from the same state,
+    each carrying its own: the gated y every step, h and the window after."""
+    cfg = reduced(get_config("zamba2-2.7b")).with_(ssm_state=ds)
+    p, state, projs = _mamba_decode_case(cuda, B, H, ds, DTYPES[dtype], seed=B + H + ds)
+    mine = {k: v.clone() for k, v in state.items()}
+    before = mamba_decode_cuda.launches
+    with torch.no_grad():
+        for proj in projs:
+            h_in = mine["h"]
+            y, mine = ssm._decode(cfg, p, proj, mine)
+            y_plain, state = _plain_decode(p, proj, state)
+            assert mine["h"] is h_in  # updated in place
+            assert y.dtype == proj.dtype and y.shape == (B, 1, H * 64)
+            torch.testing.assert_close(y.float(), y_plain.float(), **TOL[dtype])
+    torch.cuda.synchronize()
+    assert mamba_decode_cuda.launches - before == len(projs)
+    for name in ("h", "conv"):
+        assert mine[name].dtype == torch.float32 and mine[name].is_contiguous()
+        torch.testing.assert_close(mine[name], state[name], **TOL[dtype])
+
+
+def test_mamba_decode_launches_once_a_layer_and_step(cuda):
+    cfg = reduced(get_config("zamba2-2.7b")).with_(param_dtype=torch.float32)
+    model = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    caches = model.init_caches(2, 24)
+    before = mamba_decode_cuda.launches
+    for pos in range(20):
+        logits, caches = model.decode_step(caches, torch.tensor([3, 4], device=cuda), pos)
+    assert torch.isfinite(logits).all()
+    mamba = sum(b.kind == "mamba" for b in model.entries)
+    assert mamba_decode_cuda.launches - before == 20 * decode_launches(cfg)["mamba_decode"] \
+        == 20 * mamba
+    for entry, block in zip(caches, model.entries):
+        if block.kind == "mamba":
+            assert all(t.dtype == torch.float32 and t.is_contiguous() for t in entry.values())
+
+
+def test_mamba_decode_kernel_refuses_what_it_does_not_take(cuda):
+    cfg = reduced(get_config("zamba2-2.7b"))
+    p, state, projs = _mamba_decode_case(cuda, 2, 2, 16, torch.float32, seed=3)
+    args = lambda st, **kw: ({**dict(proj=projs[0], conv=st["conv"], h=st["h"],  # noqa: E731
+                                     **{k: p[k] for k in ("conv_w", "dt_bias", "a_log",
+                                                          "d_skip", "norm_z")}), **kw})
+    with torch.no_grad():
+        y, conv = mamba_decode_cuda(**args(state))
+        assert y.shape == (2, 1, 128) and conv.shape == state["conv"].shape
+        p24, st24, proj24 = _mamba_decode_case(cuda, 2, 2, 24, torch.float32, seed=4)
+        with pytest.raises(ValueError, match="d_state"):
+            ssm._decode(cfg.with_(ssm_state=24), p24, proj24[0], st24)
+        wide = torch.zeros(2, 2, 64, 32, device=cuda)[..., :16]
+        with pytest.raises(ValueError, match="contiguous"):
+            mamba_decode_cuda(**args(state, h=wide))
+    w = p["conv_w"].clone().requires_grad_(True)
+    with torch.enable_grad(), pytest.raises(ValueError, match="backward"):
+        mamba_decode_cuda(**args(state, conv_w=w))
 
 
 def test_serve_on_the_card_matches_the_cpu(cuda):

@@ -35,7 +35,7 @@ from repro_torch.distributed.sharding import shard_params
 from repro_torch.launch import dryrun, roofline
 from repro_torch.launch.mesh import Mesh, make_mesh_by_name
 from repro_torch.models import Model
-from repro_torch.models.model import decode_launches
+from repro_torch.models.model import decode_launches, layer_blocks
 
 B, S = 2, 32
 
@@ -433,3 +433,104 @@ def test_recurrent_states_are_each_ranks_share(arch):
                 assert got == rows_bytes * (d_inner // 2 + 2 * ds) // (d_inner + 2 * ds)
             elif block.kind in ("mamba", "xlstm_m"):
                 assert got * 2 == rows_bytes, name
+
+
+def _mamba_meta(dtype, B=4, H=2, d_head=64, ds=16, K=4):
+    """A Mamba2 block's decode operands on ``meta``: ``(cfg, p, proj, state)``,
+    ``w_out`` square so that a decode's output has the gated y's shape."""
+    cfg = reduced(get_config("zamba2-2.7b")).with_(ssm_state=ds, ssm_conv=K)
+    d_inner = H * d_head
+    C = d_inner + 2 * ds
+
+    def meta(*shape, dt=torch.float32):
+        return torch.empty(*shape, dtype=dt, device="meta")
+
+    p = {"conv_w": meta(K, C, dt=dtype), "norm_z": meta(d_inner, dt=dtype),
+         "a_log": meta(H), "dt_bias": meta(H), "d_skip": meta(H),
+         "w_out": meta(d_inner, d_inner, dt=dtype)}
+    state = {"h": meta(B, H, d_head, ds), "conv": meta(B, K - 1, C)}
+    return cfg, p, meta(B, 1, 2 * d_inner + 2 * ds + H, dt=dtype), state
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,ds", [(4, 2, 16), (3, 20, 64), (2, 80, 64), (1, 4, 128)])
+def test_mamba_decode_shape_function_gives_the_plain_decodes_outputs(dtype, B, H, ds):
+    """``repro_torch::mamba_decode`` on ``meta`` tensors: the gated y and the
+    window of the plain version (shapes and dtypes), h as it was; one kernel
+    call, and the products the plain version counts."""
+    from repro_torch.kernels.mamba_decode import mamba_decode_ref
+
+    _, p, proj, state = _mamba_meta(dtype, B=B, H=H, ds=ds)
+    h = state["h"]
+    args = [p[k] for k in ("conv_w", "dt_bias", "a_log", "d_skip", "norm_z")]
+    with count_cost() as plain:
+        y_plain, conv_plain = mamba_decode_ref(proj, state["conv"], h.clone(), *args)
+    with count_cost() as kernel:
+        y, conv = ops.mamba_decode(proj, state["conv"], h, *args)
+    assert (y.shape, y.dtype) == (y_plain.shape, y_plain.dtype) == ((B, 1, H * 64), dtype)
+    assert (conv.shape, conv.dtype) == (conv_plain.shape, torch.float32)
+    assert (h.shape, h.dtype) == ((B, H, 64, ds), torch.float32)
+    assert kernel.kernel_calls == {"mamba_decode": 1} and plain.kernel_calls == {}
+    assert kernel.dot_flops == plain.dot_flops > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_decode_on_the_cpu_is_the_plain_recurrence(dtype):
+    """A CPU tensor takes the plain version: bit for bit the conv over the
+    window, ``_ssm_step`` (the prefill's recurrence) and the gate, with ``h``
+    updated in place and the window moved on by one token."""
+    from repro_torch.models import ssm
+
+    g = torch.Generator().manual_seed(7)
+    B, H, dh, ds, K = 3, 4, 64, 16, 4
+    d_inner, C = H * dh, H * dh + 2 * ds
+    proj = torch.randn(B, 1, 2 * d_inner + 2 * ds + H, generator=g).to(dtype)
+    conv, h = torch.randn(B, K - 1, C, generator=g), torch.randn(B, H, dh, ds, generator=g) * 0.1
+    conv_w = (torch.randn(K, C, generator=g) * 0.5).to(dtype)
+    norm_z = (torch.randn(d_inner, generator=g) * 0.1).to(dtype)
+    dt_bias, a_log, d_skip = (torch.randn(H, generator=g) * 0.5 for _ in range(3))
+
+    z, xbc_t, dt_raw = torch.split(proj, [d_inner, C, H], dim=-1)
+    win = torch.cat([conv, xbc_t.float()], dim=1)
+    xbc = torch.nn.functional.silu(torch.einsum("bkc,kc->bc", win, conv_w.float())).to(dtype)
+    x, Bm, Cm = torch.split(xbc, [d_inner, ds, ds], dim=-1)
+    dt = torch.nn.functional.softplus(dt_raw[:, 0].float() + dt_bias)
+    h_want, y_want = ssm._ssm_step(h, x.reshape(B, H, dh).float(), Bm.float(), Cm.float(), dt,
+                                   torch.exp(a_log), d_skip)
+    y_want = y_want.reshape(B, 1, d_inner).to(dtype) * torch.nn.functional.silu(z + norm_z)
+
+    h_in = h.clone()
+    y, conv_out = ops.mamba_decode(proj, conv, h, conv_w, dt_bias, a_log, d_skip, norm_z)
+    assert torch.equal(y, y_want) and torch.equal(h, h_want) and not torch.equal(h, h_in)
+    assert torch.equal(conv_out, win[:, 1:]) and conv_out.dtype == torch.float32
+
+
+@pytest.mark.parametrize("mesh", ["single", "2x2"])
+def test_zamba2_decode_cell_counts_one_mamba_decode_a_layer(mesh):
+    """A zamba2 decode cell's kernel calls are ``decode_launches``: one
+    ``mamba_decode`` a Mamba2 layer (a rank's heads on the 2x2 mesh), beside
+    the norms and the shared block's attention."""
+    cfg = reduced(get_config("zamba2-2.7b"))
+    rec = dryrun.run_cell("zamba2-2.7b", "decode_32k", mesh, {}, rank=3, cfg=cfg, verbose=False)
+    assert rec["status"] == "ok", rec.get("traceback")
+    mamba = sum(kind == "mamba" for kind, _ in layer_blocks(cfg))
+    assert rec["kernel_calls"] == decode_launches(cfg)
+    assert rec["kernel_calls"]["mamba_decode"] == mamba == cfg.n_layers
+
+
+@pytest.mark.parametrize("arch,launches", [
+    ("gemma3-1b", {"rmsnorm": 53, "decode_attention": 26}),
+    ("olmoe-1b-7b", {"rmsnorm": 33, "decode_attention": 16}),
+    ("xlstm-125m", {"rmsnorm": 13, "decode_attention": 0}),
+    ("zamba2-2.7b", {"rmsnorm": 73, "decode_attention": 9, "mamba_decode": 54})])
+def test_decode_launches_name_mamba_decode_only_where_mamba_blocks_are(arch, launches):
+    assert decode_launches(get_config(arch)) == launches
+
+
+def test_the_cpu_decode_of_a_mamba_model_calls_no_kernel_operator():
+    cfg = reduced(get_config("zamba2-2.7b"))
+    model = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    caches = model.init_caches(2, 4)
+    with count_cost() as cost:
+        logits, _ = model.decode_step(caches, torch.tensor([3, 4]), 0)
+    assert cost.kernel_calls == {} and torch.isfinite(logits).all()
